@@ -1,0 +1,221 @@
+"""Device-side scene data model: dataclasses of tensors.
+
+Mirrors pupiloptixlab_tpu/flatten/types.py field for field; the packed
+column layouts are copied verbatim so both packages address the same
+tables. ``RenderConfig`` stays a frozen dataclass of Python values.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+# --- packed-row column layouts (verbatim from the reference) -------------
+# TriSoup.attrs (T, 26): per-hit attributes fetched in one gather.
+# Cols 17:26 mirror packed[:, 0:9] (p0, e1, e2) so barycentrics are
+# recomputed inside get_local_geometry from the same gather.
+TRI_N0, TRI_N1, TRI_N2 = slice(0, 3), slice(3, 6), slice(6, 9)
+TRI_UV0, TRI_UV1, TRI_UV2 = slice(9, 11), slice(11, 13), slice(13, 15)
+TRI_MAT, TRI_EMITTER = 15, 16
+TRI_P0, TRI_E1, TRI_E2 = slice(17, 20), slice(20, 23), slice(23, 26)
+TRI_ATTR_COLS = 26
+
+# MaterialTable.packed (M, 16)
+MAT_TYPE, MAT_TWOSIDED, MAT_ETA, MAT_INT_FDR, MAT_SSW, MAT_NONLINEAR = range(6)
+MAT_TEX0 = 6  # 6 texture-slot ids follow
+MAT_ANISO = 12  # 1.0 = the alpha texture's r/g hold (alpha_u, alpha_v)
+MAT_DISPERSION = 13  # Cauchy B (um^2) for spectral dielectrics; 0 = none
+MAT_COLS = 16
+
+# TextureTable.packed (K, 24)
+TEX_KIND = 0
+TEX_RGB, TEX_PATCH2 = slice(1, 4), slice(4, 7)
+TEX_UVT = slice(7, 13)  # row-major (2,3)
+TEX_OFFSET, TEX_W, TEX_H, TEX_FILTER, TEX_ADDRESS = 13, 14, 15, 16, 17
+TEX_OFFSET_BI = 18  # row offset into pool_bi (2x2 quad rows, see texture.py)
+TEX_COLS = 24
+
+# EmitterTable.packed (E, 32)
+EM_V0P, EM_V1P, EM_V2P = slice(0, 3), slice(3, 6), slice(6, 9)
+EM_V0N, EM_V1N, EM_V2N = slice(9, 12), slice(12, 15), slice(15, 18)
+EM_V0T, EM_V1T, EM_V2T = slice(18, 20), slice(20, 22), slice(22, 24)
+EM_RADIUS, EM_AREA, EM_SELECT_PROB, EM_RAD_TEX, EM_ETYPE = 24, 25, 26, 27, 28
+EM_COLS = 32
+
+# Texture slot assignments within MaterialTable.tex (column index):
+SLOT_REFLECTANCE = 0        # diffuse reflectance / plastic diffuse
+SLOT_SPECULAR = 1           # specular reflectance
+SLOT_TRANSMITTANCE = 2      # specular transmittance
+SLOT_ETA = 3                # conductor eta (rgb)
+SLOT_K = 4                  # conductor k (rgb)
+SLOT_ALPHA = 5              # roughness
+N_SLOTS = 6
+
+# Spheres.attrs (S, 16): w2o rows flat (12), mat_id, emitter_id, flip
+SPH_W2O = slice(0, 12)
+SPH_MAT, SPH_EMITTER, SPH_FLIP = 12, 13, 14
+SPH_COLS = 16
+
+# TriSoup.inst_packed (I, 16): per-instance shading row (instanced mode)
+INST_NRM = slice(0, 9)
+INST_MAT = 9
+INST_EMIT_BASE = 10
+INST_W2O0 = 11
+INST_COLS = 16
+
+# Curves.packed (C, 12): segment endpoints + radii + ids
+CRV_P0 = slice(0, 3)
+CRV_R0 = 3
+CRV_P1 = slice(4, 7)
+CRV_R1 = 7
+CRV_MAT = 8
+CRV_UV0, CRV_UV1 = 9, 10
+CRV_COLS = 12
+
+
+@dataclass
+class TextureTable:
+    packed: torch.Tensor        # (K, TEX_COLS) f32 packed descriptors
+    kind: torch.Tensor          # (K,) i32: 0 rgb, 1 checkerboard, 2 bitmap
+    rgb: torch.Tensor           # (K,3) f32
+    patch2: torch.Tensor        # (K,3) f32
+    uv_transform: torch.Tensor  # (K,2,3) f32
+    offset: torch.Tensor        # (K,) i32 into pool
+    width: torch.Tensor         # (K,) i32
+    height: torch.Tensor        # (K,) i32
+    filter_mode: torch.Tensor   # (K,) i32: 0 point, 1 linear
+    address_mode: torch.Tensor  # (K,) i32: 0 wrap, 1 clamp, 2 mirror
+    pool: torch.Tensor          # (P,3) f32 pixel pool
+    pool_bi: torch.Tensor       # (Q,12) f32 2x2 quad pool; (1,12) when off
+
+
+@dataclass
+class MaterialTable:
+    packed: torch.Tensor     # (M, MAT_COLS) f32 packed params
+    mtype: torch.Tensor      # (M,) i32 (MatType)
+    twosided: torch.Tensor   # (M,) bool
+    tex: torch.Tensor        # (M, N_SLOTS) i32 texture ids
+    eta: torch.Tensor        # (M,) f32
+    int_fdr: torch.Tensor    # (M,) f32
+    ssw: torch.Tensor        # (M,) f32
+    nonlinear: torch.Tensor  # (M,) bool
+
+
+@dataclass
+class TriSoup:
+    """World-space triangle table, BVH node tables (8-wide, accel/bvh.py)
+    and the instancing placeholders (1-row; instancing is not ported).
+    ``bvh_depth`` is the tree depth (root = 1), recorded at flatten time
+    so the traversal kernel can check its per-thread stack bound."""
+
+    packed: torch.Tensor       # (T,12) [p0, e1, e2, pad]
+    chunk_boxes: torch.Tensor  # (T/64, 8)
+    attrs: torch.Tensor        # (T, TRI_ATTR_COLS)
+    mat_id: torch.Tensor       # (T,) i32
+    emitter_id: torch.Tensor   # (T,) i32; -1 = not an emitter
+    bvh_child: torch.Tensor    # (M*8,) i32; >=0 child node, <0 leaf start
+    bvh_axis: torch.Tensor     # (M,) i32
+    bvh_boxes: torch.Tensor    # (M*8, 8) f32
+    leaf_start: torch.Tensor
+    leaf_inst: torch.Tensor
+    inst_w2o: torch.Tensor
+    inst_packed: torch.Tensor
+    bvh_depth: int = 0
+
+
+@dataclass
+class Spheres:
+    attrs: torch.Tensor  # (S, SPH_COLS)
+    o2w: torch.Tensor    # (S,3,4)
+    w2o: torch.Tensor    # (S,3,4)
+    mat_id: torch.Tensor
+    emitter_id: torch.Tensor
+    flip_normal: torch.Tensor  # (S,) bool
+
+
+@dataclass
+class Curves:
+    packed: torch.Tensor  # (C, CRV_COLS) f32
+
+
+@dataclass
+class EmitterTable:
+    packed: torch.Tensor
+    etype: torch.Tensor
+    v0p: torch.Tensor
+    v1p: torch.Tensor
+    v2p: torch.Tensor
+    v0n: torch.Tensor
+    v1n: torch.Tensor
+    v2n: torch.Tensor
+    v0t: torch.Tensor
+    v1t: torch.Tensor
+    v2t: torch.Tensor
+    radius: torch.Tensor
+    area: torch.Tensor
+    select_prob: torch.Tensor
+    select_cdf: torch.Tensor
+    radiance_tex: torch.Tensor
+    env_type: torch.Tensor          # () i32: 0 none, 1 const, 2 envmap
+    env_color: torch.Tensor         # (3,)
+    env_center: torch.Tensor        # (3,)
+    env_to_world: torch.Tensor      # (3,3)
+    env_to_local: torch.Tensor      # (3,3)
+    env_radiance_tex: torch.Tensor  # () i32
+    env_row_cdf: torch.Tensor       # (H+1,)
+    env_col_cdf: torch.Tensor       # (H, W+1)
+    env_joint_cdf: torch.Tensor     # (H*W,)
+    env_row_weight: torch.Tensor    # (H,)
+    env_normalization: torch.Tensor  # () f32
+    env_scale: torch.Tensor         # () f32
+    env_select_prob: torch.Tensor   # () f32
+
+
+@dataclass
+class CameraBlock:
+    sample_to_camera: torch.Tensor  # (4,4)
+    camera_to_world: torch.Tensor   # (4,4)
+
+
+@dataclass
+class SceneData:
+    tris: TriSoup
+    spheres: Spheres
+    curves: Curves
+    materials: MaterialTable
+    textures: TextureTable
+    emitters: EmitterTable
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings (same fields and defaults as the
+    reference's RenderConfig)."""
+
+    width: int
+    height: int
+    max_depth: int = 2
+    accumulate: bool = True
+    spp_per_pass: int = 1
+    tri_count: int = 0
+    sphere_count: int = 0
+    curve_count: int = 0
+    emitter_count: int = 0
+    has_env: bool = False
+    env_size: tuple[int, int] = (0, 0)
+    mat_types: tuple[int, ...] = tuple(range(1, 8))
+    tex_kinds: tuple[int, ...] = (0, 1, 2)
+    mat_tex_kinds: tuple[int, ...] = (0, 1, 2)
+    mat_tex_filters: tuple[int, ...] = (0, 1)
+    em_tex_kinds: tuple[int, ...] = (0, 1, 2)
+    em_tex_filters: tuple[int, ...] = (0, 1)
+    env_filter: int = 1
+    has_sphere_emitter: bool = True
+    has_point_emitter: bool = False
+    has_directional_emitter: bool = False
+    bvh_nodes: int = 0
+    bvh_tcl: int = 0
+    instanced: bool = False
+    debug_checks: bool = False
+    spectral: bool = False

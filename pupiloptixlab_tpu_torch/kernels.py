@@ -1,0 +1,138 @@
+"""Build, load and count the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library
+holding ``extern "C"`` launchers (route (b): a plain C interface bound
+with ctypes, no PyTorch headers, so a build takes seconds). All sources
+compile in parallel, one nvcc process each, at first use. The output
+goes to ``pupiloptixlab_tpu_torch/_build/<hash>/``, keyed by a hash of
+every source and the flags, so an edited source rebuilds and a stale
+library is never loaded.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` with IEEE
+division and square root (no ``--use_fast_math``): every float op rounds
+on its own exactly as the plain PyTorch versions do, so the traversal
+kernels return bit-identical hit distances.
+
+``LAUNCHES[name]`` counts the launches of each kernel; a wrapper adds
+one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+    "-Xptxas", "-v",
+]
+
+# kernel name -> (source stem, C launcher symbol, ctypes argtypes)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNELS = {
+    "bvh_closest": ("bvh_traverse", "launch_bvh_closest",
+                    [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "bvh_anyhit": ("bvh_traverse", "launch_bvh_anyhit",
+                   [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "gather_planes": ("gather", "launch_gather_planes",
+                      [_P, _I, _I, _P, _I, _P, _P]),
+    "count_less": ("gather", "launch_count_less", [_P, _I, _P, _I, _P, _P]),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # source stem -> nvcc stdout+stderr (ptxas -v)
+BUILD_SECONDS = 0.0
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library; idempotent."""
+    global BUILD_SECONDS
+    if _libs:
+        return _libs
+    t0 = time.perf_counter()
+    out_dir = BUILD_ROOT / _source_hash()
+    stems = sorted({stem for stem, _, _ in KERNELS.values()})
+    missing = [s for s in stems if not (out_dir / f"lib{s}.so").exists()]
+    nvcc = _nvcc() if missing else None
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for stem in missing:
+        lib = out_dir / f"lib{stem}.so"
+        tmp = out_dir / f"lib{stem}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    failed = []
+    for stem, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[stem] = out
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu (rc {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for stem in stems:
+        _libs[stem] = ctypes.CDLL(str(out_dir / f"lib{stem}.so"))
+    for stem, sym, argtypes in KERNELS.values():
+        fn = getattr(_libs[stem], sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    BUILD_SECONDS = time.perf_counter() - t0
+    return _libs
+
+
+def launcher(name: str):
+    """The ctypes launcher of kernel ``name`` (builds on first use)."""
+    stem, sym, _ = KERNELS[name]
+    return getattr(build_all()[stem], sym)
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} launch failed: cudaError {rc}")

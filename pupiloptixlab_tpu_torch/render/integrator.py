@@ -1,0 +1,335 @@
+"""Progressive path tracer with NEE + balance-heuristic MIS (RGB).
+
+Mirrors pupiloptixlab_tpu/render/integrator.py: camera rays -> closest
+hit -> [NEE shadow ray + BSDF bounce] x (max_depth - 1) -> one deferred
+env evaluation -> progressive 1/(n+1) blend. Every lane carries an
+``active`` mask instead of branching; the reference's ``lax.scan`` over
+``_bounce`` is a Python loop here, and the frame runs under
+``torch.inference_mode()``.
+
+BVH scenes with block-divisible films generate primary rays in (8 x 128)
+pixel blocks exactly as the reference does (lanes are decoded back to
+row-major pixels at the end); the per-pixel RNG is keyed by pixel id, so
+lane order never changes the image.
+
+Not ported here: spectral transport, multi-chip tile permutations and the
+value sanitizer (``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from pupiloptixlab_tpu_torch.accel.gather import gather_cols
+from pupiloptixlab_tpu_torch.accel.intersect import intersect_any, intersect_closest
+from pupiloptixlab_tpu_torch.flatten.types import (
+    EM_RAD_TEX,
+    CameraBlock,
+    RenderConfig,
+    SceneData,
+)
+from pupiloptixlab_tpu_torch.render import bsdf as bsdf_mod
+from pupiloptixlab_tpu_torch.render import emitter as emitter_mod
+from pupiloptixlab_tpu_torch.render import rng
+from pupiloptixlab_tpu_torch.render.camera import generate_rays, generate_rays_for
+from pupiloptixlab_tpu_torch.render.geometry import get_local_geometry
+from pupiloptixlab_tpu_torch.render.sampling import (
+    MAX_DISTANCE,
+    RAY_OFFSET,
+    is_zero,
+    mis_weight,
+    to_local,
+    to_world,
+)
+from pupiloptixlab_tpu_torch.render.texture import sample_texture_cols
+from pupiloptixlab_tpu_torch.render.vec import Vec3, where
+
+_TINY = 1e-12
+_BLOCK_H, _BLOCK_W = 8, 128
+
+
+def _use_blocks(config) -> bool:
+    return (
+        config.bvh_nodes > 0
+        and config.width % _BLOCK_W == 0
+        and config.height % _BLOCK_H == 0
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _block_pix_np(width: int, height: int) -> np.ndarray:
+    hb, wb = height // _BLOCK_H, width // _BLOCK_W
+    ids = np.arange(height * width, dtype=np.int32).reshape(hb, _BLOCK_H, wb, _BLOCK_W)
+    return ids.transpose(0, 2, 1, 3).reshape(-1)
+
+
+def _block_pix(width: int, height: int, device) -> torch.Tensor:
+    """(n,) pixel ids in (8 x 128)-block lane order."""
+    return torch.from_numpy(_block_pix_np(width, height)).to(device)
+
+
+def _block_decode(v: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Lane order -> row-major pixel order (reshape + permute only)."""
+    hb, wb = height // _BLOCK_H, width // _BLOCK_W
+    rest = tuple(v.shape[1:])
+    v4 = v.reshape(hb, wb, _BLOCK_H, _BLOCK_W, *rest)
+    perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(rest)))
+    return v4.permute(*perm).reshape(height * width, *rest)
+
+
+def _first_hit_emission(scene, config, geo) -> Vec3:
+    """GetRadiance at the hit uv (main.cu:87-92)."""
+    em, tex = scene.emitters, scene.textures
+    erow = gather_cols(em.packed, torch.clamp(geo.emitter_id, min=0))
+    trow = gather_cols(tex.packed, erow[EM_RAD_TEX].to(torch.int32))
+    return sample_texture_cols(
+        trow, tex.pool, geo.uv, config.em_tex_kinds, config.em_tex_filters,
+        tex.pool_bi,
+    )
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32, for constants the reference
+    computes in float32."""
+    return float(np.float32(x))
+
+
+def _bounce(scene, config, n, carry, depth):
+    """One NEE + BSDF-bounce iteration (the body of main.cu:103-184)."""
+    state, active, radiance, throughput, wo_world, geo, local, esc = carry
+    em, tex = scene.emitters, scene.textures
+    dev = state.device
+
+    state, us = rng.next_floats(state, 7)
+    u_rr, u_sel, u_l1, u_l2, u_b0, u_b1, u_b2 = us
+
+    # Russian roulette (main.cu:108-111)
+    rr = 0.95 if depth > 2 else 1.0
+    active = active & (u_rr <= rr)
+    throughput = where(active, throughput * _f32(np.float32(1.0) / np.float32(rr)),
+                       throughput)
+
+    # --- next-event estimation (main.cu:113-141) ----------------------------
+    idx, use_env = emitter_mod.select_emitter(em, config, u_sel)
+    es = emitter_mod.sample_direct(
+        em, tex, config, idx, use_env, geo.position, geo.normal, u_l1, u_l2,
+    )
+    wo_local = to_local(wo_world, geo.normal)
+    wi_local = to_local(es.wi, geo.normal)
+    f_nee, pdf_bsdf = bsdf_mod.evaluate(local, wo_local, wi_local, config.mat_types)
+    nol = geo.normal.dot(es.wi)
+    nonzero = ~is_zero(f_nee * es.pdf)
+    # shadow rays only where the NEE contribution can be nonzero; culled
+    # lanes get an empty interval and cost the traversal nothing
+    shadow_mask = active & nonzero & (nol > 0.0)
+    tmin = torch.full((n,), RAY_OFFSET, dtype=torch.float32, device=dev)
+    occluded = intersect_any(
+        geo.position, es.wi, tmin, es.distance - RAY_OFFSET, scene, config,
+        mask=shadow_mask,
+    )
+    # the NEE density includes the selection probability (the reference
+    # package's deliberate deviation from main.cu:135-137)
+    pdf_light = es.pdf * es.select_prob
+    mis = torch.where(es.is_delta, 1.0, mis_weight(pdf_light, pdf_bsdf))
+    scale = nol * mis / torch.clamp(pdf_light, min=_TINY)
+    contrib = throughput * es.radiance * f_nee * scale
+    take = shadow_mask & ~occluded
+    zero3 = Vec3.zeros(n, device=dev)
+    radiance = radiance + where(take, contrib, zero3)
+    del es, contrib, occluded
+
+    # --- BSDF sampling + bounce (main.cu:142-183) ----------------------------
+    wi_s, f_s, pdf_s, lobe = bsdf_mod.sample(
+        local, wo_local, u_b0, u_b1, u_b2, config.mat_types
+    )
+    cos_term = torch.abs(wi_s.z)
+    bad = is_zero(f_s * cos_term) | is_zero(pdf_s)
+    active = active & ~bad
+    weight = f_s * (cos_term / torch.clamp(pdf_s, min=_TINY))
+    throughput = where(active, throughput * weight, throughput)
+
+    new_rd = to_world(wi_s, geo.normal)
+    new_ro = geo.position
+    hit = intersect_closest(
+        new_ro, new_rd, tmin, torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev),
+        scene, config, mask=active,
+    )
+
+    # escape -> environment MIS, resolved once after the loop (a lane
+    # escapes at most once); directions NEE can never produce (delta lobes,
+    # below the shading normal) take MIS weight 1 on the BSDF side
+    nee_blind = ((lobe & bsdf_mod.LOBE_DELTA) != 0) | (geo.normal.dot(new_rd) <= 0.0)
+    if config.has_env:
+        esc_mask, esc_dir, esc_tp, esc_pdf = esc
+        escaped = active & ~hit.hit_mask
+        esc_mask = esc_mask | escaped
+        esc_dir = where(escaped, new_rd, esc_dir)
+        esc_tp = where(escaped, throughput, esc_tp)
+        # -1 = the same "un-weighted" sentinel as primary misses
+        esc_pdf = torch.where(escaped, torch.where(nee_blind, -1.0, pdf_s), esc_pdf)
+        esc = (esc_mask, esc_dir, esc_tp, esc_pdf)
+    active = active & hit.hit_mask
+
+    geo = get_local_geometry(scene, hit, new_ro, new_rd, config.sphere_count,
+                             config.instanced, config.curve_count)
+    local = bsdf_mod.get_local_bsdf(
+        scene.materials, tex, geo.mat_id, geo.uv, config.mat_types,
+        config.mat_tex_kinds, config.mat_tex_filters,
+    )
+    wo_world = -new_rd
+
+    # hit an emitter -> MIS-weighted emission (main.cu:171-183)
+    emit_rad, emit_pdf, hit_sel_prob = emitter_mod.eval_hit_emitter(
+        em, tex, config, geo.emitter_id, geo.position, geo.normal, geo.uv, new_ro
+    )
+    mis_hit = torch.where(nee_blind, 1.0, mis_weight(pdf_s, emit_pdf * hit_sel_prob))
+    # emission is one-sided on the stored normal (geo.front)
+    take_e = active & (geo.emitter_id >= 0) & ~is_zero(emit_pdf) & geo.front
+    radiance = radiance + where(take_e, throughput * emit_rad * mis_hit, zero3)
+    return (state, active, radiance, throughput, wo_world, geo, local, esc)
+
+
+def render_sample(
+    scene: SceneData,
+    camera: CameraBlock,
+    seed: int,
+    config: RenderConfig,
+    tile_perm=None,
+):
+    """Trace one sample per pixel; returns a dict of flat (N, *) buffers:
+    radiance, albedo, normal, test."""
+    if config.spectral:
+        raise NotImplementedError("spectral transport: ROADMAP A.9")
+    if tile_perm is not None:
+        raise NotImplementedError("multi-chip tile permutation: ROADMAP A.13")
+    if config.debug_checks:
+        raise NotImplementedError("value sanitizer (debug_checks): ROADMAP A.12")
+    w, h = config.width, config.height
+    n = w * h
+    em, tex = scene.emitters, scene.textures
+    dev = scene.tris.packed.device
+
+    if _use_blocks(config):
+        pix = _block_pix(w, h, dev)
+        state = rng.tea_init(pix, seed)
+        state, (jx, jy) = rng.next_floats(state, 2)
+        ro, rd = generate_rays_for(camera, w, h, pix, jx, jy)
+    else:
+        state = rng.tea_init(torch.arange(n, dtype=torch.int64, device=dev), seed)
+        state, (jx, jy) = rng.next_floats(state, 2)
+        ro, rd = generate_rays(camera, w, h, jx, jy)
+
+    tmin = torch.full((n,), RAY_OFFSET, dtype=torch.float32, device=dev)
+    tmax = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
+    hit = intersect_closest(ro, rd, tmin, tmax, scene, config)
+    geo = get_local_geometry(scene, hit, ro, rd, config.sphere_count,
+                             config.instanced, config.curve_count)
+    local = bsdf_mod.get_local_bsdf(
+        scene.materials, tex, geo.mat_id, geo.uv, config.mat_types,
+        config.mat_tex_kinds, config.mat_tex_filters,
+    )
+
+    active = hit.hit_mask
+    radiance = Vec3.zeros(n, device=dev)
+    throughput = Vec3.ones(n, device=dev)
+    zero3 = Vec3.zeros(n, device=dev)
+
+    # primary miss -> un-weighted env radiance, deferred to the single
+    # post-loop eval_env (esc_pdf = -1 encodes "no MIS weight")
+    esc = (
+        (~active, rd, Vec3.ones(n, device=dev),
+         torch.full((n,), -1.0, dtype=torch.float32, device=dev))
+        if config.has_env
+        else None
+    )
+
+    # first-hit emission (main.cu:87-92), one-sided on the stored normal
+    is_emitter = active & (geo.emitter_id >= 0) & geo.front
+    emit0 = _first_hit_emission(scene, config, geo)
+    radiance = radiance + where(is_emitter, emit0, zero3)
+
+    # AOVs from the first hit (main.cu:94-99)
+    albedo_aov = where(active, bsdf_mod.albedo(local), zero3)
+    normal_aov = where(active, geo.normal, zero3)
+
+    # the reference writes one RNG draw to the debug AOV (main.cu:101)
+    state, test_aov = rng.next_float(state)
+
+    carry = (state, active, radiance, throughput, -rd, geo, local, esc)
+    del hit, emit0
+    for depth in range(1, config.max_depth):
+        carry = _bounce(scene, config, n, carry, depth)
+    radiance = carry[2]
+    esc = carry[7]
+    del carry
+
+    # deferred environment resolve: one eval_env per sample
+    if config.has_env:
+        esc_mask, esc_dir, esc_tp, esc_pdf = esc
+        env_rad, env_pdf = emitter_mod.eval_env(em, tex, config, esc_dir)
+        mis_env = torch.where(
+            esc_pdf < 0.0, 1.0, mis_weight(esc_pdf, env_pdf * em.env_select_prob),
+        )
+        radiance = radiance + where(esc_mask, esc_tp * env_rad * mis_env, zero3)
+
+    out = {
+        "radiance": radiance.to_array(),
+        "albedo": albedo_aov.to_array(),
+        "normal": normal_aov.to_array(),
+        "test": test_aov,
+    }
+    if _use_blocks(config):
+        out = {k: _block_decode(v, w, h) for k, v in out.items()}
+    return out
+
+
+def render_frame(
+    scene: SceneData,
+    camera: CameraBlock,
+    seed: int,
+    sample_cnt: int,
+    accum: torch.Tensor,
+    config: RenderConfig,
+    tile_perm=None,
+):
+    """One progressive frame: trace + accumulate (main.cu:187-193).
+
+    ``accum`` ((N, 3) float32) is updated in place, as the reference
+    donates it. Returns (accum, buffers) where buffers holds the
+    displayable AOVs (frame, albedo, normal, test)."""
+    with torch.inference_mode():
+        out = render_sample(scene, camera, seed, config, tile_perm)
+        radiance = out["radiance"]
+        if config.accumulate and sample_cnt > 0:
+            t = _f32(np.float32(1.0) / (np.float32(sample_cnt) + np.float32(1.0)))
+            accum.add_((radiance - accum) * t)
+        else:
+            accum.copy_(radiance)
+        buffers = {
+            "frame": accum,
+            "albedo": out["albedo"],
+            "normal": out["normal"],
+            "test": out["test"],
+        }
+    return accum, buffers
+
+
+def render(
+    scene: SceneData,
+    camera: CameraBlock,
+    config: RenderConfig,
+    spp: int,
+    seed0: int = 0,
+):
+    """Render ``spp`` progressive samples; returns (h, w, 3) radiance. The
+    per-sample seeds and blend equal a loop of render_frame calls."""
+    n = config.width * config.height
+    dev = scene.tris.packed.device
+    with torch.inference_mode():
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        for i in range(spp):
+            render_frame(scene, camera, seed0 + i, i, accum, config)
+    return accum.reshape(config.height, config.width, 3)
