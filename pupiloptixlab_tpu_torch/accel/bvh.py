@@ -1,8 +1,7 @@
 """Host-side 8-wide BVH builder over the flattened triangle soup.
 
-A numpy copy of pupiloptixlab_tpu/accel/bvh.py (which cannot be imported
-here: its package ``__init__`` pulls in the JAX intersector). It gives
-bit-identical ``order``, ``child``, ``axis`` and ``boxes``.
+Counterpart of pupiloptixlab_tpu/accel/bvh.py, with bit-identical
+``order``, ``child``, ``axis`` and ``boxes``.
 
 Builder design: binned-SAH splits over triangle centroids, three binary
 levels collapsed into one 8-ary node, triangles reordered so every leaf
@@ -17,7 +16,6 @@ id 0 (the root) with a never-hit point box at 1e30. Node 0 is the root.
 
 from __future__ import annotations
 
-import ctypes
 import sys
 from dataclasses import dataclass
 
@@ -60,48 +58,6 @@ _NEVER_LO = np.full(3, 1e30, np.float32)
 _NEVER_HI = np.full(3, 1e30, np.float32)
 
 
-def _fptr(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-
-
-def _build_bvh8_native(p0, p1, p2, valid_count: int, tcl: int):
-    """The reference's C++ builder through ctypes (same call as
-    pupiloptixlab_tpu.native.build_bvh8_native); None when the library
-    is unavailable or reports an error."""
-    from pupiloptixlab_tpu import native
-
-    lib = native._load()
-    if lib is None:
-        return None
-    t_pad = int(p0.shape[0])
-    max_nodes = t_pad // tcl + 8
-    order = np.empty(t_pad, np.int64)
-    child = np.empty(max_nodes * 8, np.int32)
-    axis = np.empty(max_nodes, np.int32)
-    boxes = np.empty(max_nodes * 64, np.float32)
-    p0c = np.ascontiguousarray(p0, np.float32)
-    p1c = np.ascontiguousarray(p1, np.float32)
-    p2c = np.ascontiguousarray(p2, np.float32)
-    m = lib.pupil_build_bvh8(
-        _fptr(p0c), _fptr(p1c), _fptr(p2c),
-        t_pad, int(valid_count), int(tcl), max_nodes,
-        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        child.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        axis.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _fptr(boxes),
-    )
-    if m <= 0:
-        return None
-    return BvhArrays(
-        order=order,
-        child=child[: m * 8].copy(),
-        axis=axis[:m].copy(),
-        boxes=boxes[: m * 64].reshape(m * 8, 8).copy(),
-        tcl=tcl,
-        n_nodes=m,
-    )
-
-
 def build_bvh(
     p0: np.ndarray,
     p1: np.ndarray,
@@ -114,13 +70,15 @@ def build_bvh(
     ((T,3) each; rows >= valid_count are degenerate padding). T must be
     a multiple of tcl and > tcl.
 
-    Prefers the reference's C++ builder (native/pupil_native.cpp, loaded
-    through pupiloptixlab_tpu.native), exactly as the reference's
-    build_bvh does, so both packages flatten a scene to the same tables;
-    this numpy implementation is the behavioral specification and the
-    fallback. ``allow_native=False`` forces numpy."""
+    Prefers the C++ builder (csrc/pupil_native.cpp through native.py),
+    as the JAX package's build_bvh does with its own copy, so both
+    packages flatten a scene to the same tables; this numpy
+    implementation is the behavioral specification and the fallback.
+    ``allow_native=False`` forces numpy."""
     if allow_native:
-        native = _build_bvh8_native(p0, p1, p2, valid_count, tcl)
+        from pupiloptixlab_tpu_torch.native import build_bvh8_native
+
+        native = build_bvh8_native(p0, p1, p2, valid_count, tcl)
         if native is not None:
             return native
 

@@ -6,10 +6,9 @@ and ``bvh_anyhit``. Kernels (csrc/bvh_traverse.cu):
   bvh_closest (K1) <- _make_closest_kernel
   bvh_anyhit  (K2) <- _make_anyhit_kernel
 
-The plain versions are a chunked brute-force sweep over every triangle in
-``_mt_planes``'s arithmetic (the JAX package's CPU path,
-intersect.py::_sweep_tris_xla): the closest hit with ties at equal t going
-to the lowest row. The kernels return exactly that (t, row), bit for bit.
+The plain versions are the brute-force sweep of accel/sweep.py
+(``brute_sweep``) over every triangle: the closest hit with ties at equal
+t going to the lowest row. The kernels return exactly that (t, row), bit for bit.
 """
 
 from __future__ import annotations
@@ -17,11 +16,9 @@ from __future__ import annotations
 import torch
 
 from pupiloptixlab_tpu_torch import kernels
+from pupiloptixlab_tpu_torch.accel.sweep import brute_sweep
 
-MAX_DISTANCE = 1e16
-_DET_EPS = 1e-12
 STACK_SIZE = 64  # per-thread traversal stack of the CUDA kernels
-_PAIR_BUDGET = 1 << 22  # (ray, triangle) pairs per chunk of the plain sweep
 
 
 def stack_fits(depth: int) -> bool:
@@ -30,75 +27,15 @@ def stack_fits(depth: int) -> bool:
     return 7 * depth + 1 <= STACK_SIZE
 
 
-def _sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit: bool):
-    n = rox.shape[0]
-    dev = rox.device
-    tbest = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
-    ibest = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    live = torch.nonzero(tmax > tmin).squeeze(1)
-    n_tris = tri.shape[0]
-    if live.numel() == 0 or n_tris == 0:
-        return tbest, ibest
-    cols = [tri[:, k] for k in range(9)]
-    r_chunk = max(min(live.numel(), _PAIR_BUDGET // 64), 1)
-    for rs in range(0, live.numel(), r_chunk):
-        lanes = live[rs:rs + r_chunk]
-        ox, oy, oz, dx, dy, dz, tmn, tmx = (
-            a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
-        )
-        bt = torch.full((lanes.numel(),), MAX_DISTANCE, dtype=torch.float32, device=dev)
-        bi = torch.full((lanes.numel(),), -1, dtype=torch.int32, device=dev)
-        t_chunk = max(_PAIR_BUDGET // lanes.numel(), 8)
-        for ts in range(0, n_tris, t_chunk):
-            p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-                c[ts:ts + t_chunk][None, :] for c in cols
-            )
-            # _mt_planes, operation by operation
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            inv = torch.reciprocal(
-                torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
-            )
-            tvx = ox - p0x
-            tvy = oy - p0y
-            tvz = oz - p0z
-            u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
-            del pvx, pvy, pvz
-            qvx = tvy * e1z - tvz * e1y
-            qvy = tvz * e1x - tvx * e1z
-            qvz = tvx * e1y - tvy * e1x
-            del tvx, tvy, tvz
-            v = (dx * qvx + dy * qvy + dz * qvz) * inv
-            t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
-            del qvx, qvy, qvz, inv
-            ok = (
-                (torch.abs(det) >= _DET_EPS)
-                & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (t > tmn) & (t < tmx)
-            )
-            t = torch.where(ok, t, MAX_DISTANCE)
-            tj, j = torch.min(t, dim=1)  # first (lowest) index among ties
-            better = tj < bt
-            bt = torch.where(better, tj, bt)
-            bi = torch.where(better, (j + ts).to(torch.int32), bi)
-            if any_hit and bool((bi >= 0).all()):
-                break
-        tbest[lanes] = bt
-        ibest[lanes] = bi
-    return tbest, ibest
-
-
 def plain_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri):
     """Plain version of K1: brute-force closest hit (t, row); a miss is
     (1e16, -1)."""
-    return _sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=False)
+    return brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=False)
 
 
 def plain_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri):
     """Plain version of K2: ``plain_closest(...).idx >= 0`` as int32."""
-    _, idx = _sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=True)
+    _, idx = brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=True)
     return (idx >= 0).to(torch.int32)
 
 

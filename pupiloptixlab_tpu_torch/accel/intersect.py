@@ -2,10 +2,11 @@
 
 Mirrors pupiloptixlab_tpu/accel/intersect.py. Triangle scenes with a BVH
 (``config.bvh_nodes > 0``) go through ``bvh_closest`` / ``bvh_anyhit``
-(accel/bvh_traverse.py), which launch the CUDA kernels for tables on the
-card and run the plain brute-force sweep for tables on the CPU. Small
-scenes take the reference's chunk sweep (``bvh_nodes == 0``); its kernels
-are not ported yet, so such a scene runs only on the CPU here.
+(accel/bvh_traverse.py); scenes without one (``bvh_nodes == 0``: 1024
+triangles or fewer, or ``PUPIL_NO_BVH`` at flatten time) take the
+reference's chunk sweep through ``sweep_closest`` / ``sweep_anyhit``
+(accel/sweep.py). Each wrapper launches its CUDA kernel for tables on the
+card and runs the plain brute-force sweep for tables on the CPU.
 
 The reference's ray sort (``_sorted_ray_sweep``, ``origin_sort_prim``)
 only permutes lanes for TPU tile coherence and is left out: results are
@@ -18,11 +19,8 @@ from dataclasses import dataclass
 
 import torch
 
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import (
-    bvh_anyhit,
-    bvh_closest,
-    plain_closest,
-)
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_anyhit, bvh_closest
+from pupiloptixlab_tpu_torch.accel.sweep import sweep_anyhit, sweep_closest
 from pupiloptixlab_tpu_torch.flatten.types import (
     CRV_P0,
     CRV_P1,
@@ -72,13 +70,8 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
             *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
             tcl=config.bvh_tcl, depth=tris.bvh_depth,
         )
-    elif tris.packed.device.type == "cpu":
-        t, idx = plain_closest(*planes, tris.packed)
     else:
-        raise NotImplementedError(
-            "chunk-sweep kernels (sweep_triangles, sweep_triangles_any): "
-            "slice 2 of the port; scenes with bvh_nodes == 0 run on the CPU only"
-        )
+        t, idx = sweep_closest(*planes, tris.packed, tris.chunk_boxes)
     hit = idx >= 0
     return (
         torch.where(hit, t, MAX_DISTANCE),
@@ -234,19 +227,25 @@ def intersect_any(
     mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Occlusion test (shadow rays): any hit in (tmin, tmax) -> True.
-    BVH scenes run the terminate-on-first-hit traversal; elsewhere the
-    closest-hit path doubles as the occlusion test."""
+    Triangles go through the terminate-on-first-hit kernels (the BVH
+    traversal, or the chunk sweep where there is no BVH), with the sphere
+    and curve tests OR-ed in; a scene without triangles takes the
+    closest-hit path."""
     if config.instanced:
         raise NotImplementedError("instanced traversal: ROADMAP A.8 (instancing)")
     if mask is not None:
         tmax = torch.where(mask, tmax, -1.0)
-    if config.tri_count > 0 and config.bvh_nodes > 0:
+    if config.tri_count > 0:
         tris = scene.tris
         planes = [p.contiguous() for p in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tmin, tmax)]
-        occluded = bvh_anyhit(
-            *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
-            tcl=config.bvh_tcl, depth=tris.bvh_depth,
-        ) != 0
+        if config.bvh_nodes > 0:
+            occ = bvh_anyhit(
+                *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
+                tcl=config.bvh_tcl, depth=tris.bvh_depth,
+            )
+        else:
+            occ = sweep_anyhit(*planes, tris.packed, tris.chunk_boxes)
+        occluded = occ != 0
         if config.sphere_count > 0:
             _, hit_s = _sphere_tests(ro, rd, scene, tmin, tmax)
             occluded = occluded | torch.any(hit_s, dim=0)

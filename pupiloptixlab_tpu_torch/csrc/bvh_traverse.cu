@@ -29,98 +29,25 @@
 // 1 MB of triangles) and stay in L2/L1; all loads go through the read-only
 // path. Sorting secondary rays for coherence is left to later, measured work.
 //
-// Exactness. The slab test is exactly _slab8 (pallas_bvh.py:176-196) in its
-// min/max form with the inclusive tn <= tf and tfar clamped by the running
-// best t; inverse directions are _planes.safe_inv. The leaf test follows
-// _mt_planes (intersect.py:98-108) operation by operation with IEEE 1/det,
-// and the library is compiled with -fmad=false, so t is bit-identical to
-// the plain PyTorch sweep. Ties at equal t keep the lowest row, which makes
+// Exactness. The slab test (ray_tests.cuh) is exactly _slab8 with tfar
+// clamped by the running best t, and the leaf test is _mt_planes with IEEE
+// 1/det under -fmad=false, so t is bit-identical to the plain PyTorch
+// sweep. Ties at equal t keep the lowest row, which makes
 // (t, row) independent of visit order and equal to the brute sweep's
 // choice. Empty child slots carry child id 0 with a never-hit point box at
 // 1e30; id 0 is never pushed as a child, and a visit cap (every slot of the
 // tree once) sets an error flag that the wrapper raises on.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ray_tests.cuh"
 
 namespace {
 
-constexpr float kMaxDistance = 1e16f;
-constexpr float kDetEps = 1e-12f;
+using namespace rt;
+
 constexpr int kStack = 64;
 constexpr int kThreads = 128;
 
 enum : int { kErrVisitCap = 1, kErrStack = 2 };
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmn, tmx;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-  // pallas_bvh.py _planes.safe_inv: sign(d) / max(|d|, 1e-12)
-  const float mag = fmaxf(fabsf(d), 1e-12f);
-  return (d < 0.0f ? -1.0f : 1.0f) / mag;
-}
-
-// _slab8 for one child box; returns tn (entry distance) and whether the
-// box passes (tn <= tf).
-__device__ __forceinline__ bool slab(const float4* __restrict__ box,
-                                     const Ray& r, float tfar, float* tn_out) {
-  const float4 lo = __ldg(box);      // lox loy loz hix
-  const float4 hi = __ldg(box + 1);  // hiy hiz 0 0
-  const float tx0 = (lo.x - r.ox) * r.ix;
-  const float ty0 = (lo.y - r.oy) * r.iy;
-  const float tz0 = (lo.z - r.oz) * r.iz;
-  const float tx1 = (lo.w - r.ox) * r.ix;
-  const float ty1 = (hi.x - r.oy) * r.iy;
-  const float tz1 = (hi.y - r.oz) * r.iz;
-  const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                         fmaxf(fminf(tz0, tz1), r.tmn));
-  const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                         fminf(fmaxf(tz0, tz1), tfar));
-  *tn_out = tn;
-  return tn <= tf;
-}
-
-// _mt_planes + the acceptance test of _sweep_tris_xla; t valid iff true.
-__device__ __forceinline__ bool moller_trumbore(const float4* __restrict__ row,
-                                                const Ray& r, float* t_out) {
-  const float4 a = __ldg(row);      // p0x p0y p0z e1x
-  const float4 b = __ldg(row + 1);  // e1y e1z e2x e2y
-  const float4 c = __ldg(row + 2);  // e2z pad pad pad
-  const float p0x = a.x, p0y = a.y, p0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  const float pvx = r.dy * e2z - r.dz * e2y;
-  const float pvy = r.dz * e2x - r.dx * e2z;
-  const float pvz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const float inv = 1.0f / (fabsf(det) < kDetEps ? kDetEps : det);
-  const float tvx = r.ox - p0x;
-  const float tvy = r.oy - p0y;
-  const float tvz = r.oz - p0z;
-  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv;
-  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-  *t_out = t;
-  return fabsf(det) >= kDetEps && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-         t > r.tmn && t < r.tmx;
-}
-
-__device__ __forceinline__ Ray load_ray(int i, const float* rox, const float* roy,
-                                        const float* roz, const float* rdx,
-                                        const float* rdy, const float* rdz,
-                                        const float* tmin, const float* tmax) {
-  Ray r;
-  r.ox = rox[i]; r.oy = roy[i]; r.oz = roz[i];
-  r.dx = rdx[i]; r.dy = rdy[i]; r.dz = rdz[i];
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  r.tmn = tmin[i]; r.tmx = tmax[i];
-  return r;
-}
 
 __device__ __forceinline__ int leaf_start(int id, int t_rows, int tcl) {
   // clamp_leaf of the reference: rows [start, start + tcl) stay in the table

@@ -4,7 +4,7 @@ port's dataclasses.
 ``scene_from_arrays`` takes the leaves of the JAX package's ``SceneData``
 as ``{"tris": {"packed": ..., ...}, "spheres": {...}, ...}`` (keyed by the
 reference's field names, values numpy arrays) and returns the port's
-``SceneData`` on ``device``; ``camera_from_arrays`` does the same for a
+``SceneData`` on ``device`` (``None``: the card); ``camera_from_arrays`` does the same for a
 ``CameraBlock`` and ``config_from_fields`` for a ``RenderConfig``. Given
 identical tables, a render in each package isolates render faults from
 flatten faults. Nothing here imports jax: the caller flattens the tree.
@@ -17,6 +17,7 @@ from dataclasses import fields
 import numpy as np
 
 from pupiloptixlab_tpu_torch.accel.bvh import bvh_depth
+from pupiloptixlab_tpu_torch.device import resolve_device
 from pupiloptixlab_tpu_torch.flatten.flatten import _t
 from pupiloptixlab_tpu_torch.flatten.types import (
     CameraBlock,
@@ -41,6 +42,7 @@ _GROUPS = {
 
 
 def _table(cls, leaves: dict, device):
+    device = resolve_device(device)
     names = [f.name for f in fields(cls) if f.name != "bvh_depth"]
     missing = set(names) - set(leaves)
     if missing:
@@ -48,7 +50,7 @@ def _table(cls, leaves: dict, device):
     return {k: _t(np.asarray(leaves[k]), device=device) for k in names}
 
 
-def scene_from_arrays(tree: dict, config: RenderConfig, device="cpu") -> SceneData:
+def scene_from_arrays(tree: dict, config: RenderConfig, device=None) -> SceneData:
     parts = {g: _table(cls, tree[g], device) for g, cls in _GROUPS.items()}
     depth = bvh_depth(np.asarray(tree["tris"]["bvh_child"])) if config.bvh_nodes > 0 else 0
     parts["tris"] = TriSoup(**parts["tris"], bvh_depth=depth)
@@ -58,7 +60,7 @@ def scene_from_arrays(tree: dict, config: RenderConfig, device="cpu") -> SceneDa
     return SceneData(**parts)
 
 
-def camera_from_arrays(tree: dict, device="cpu") -> CameraBlock:
+def camera_from_arrays(tree: dict, device=None) -> CameraBlock:
     return CameraBlock(**_table(CameraBlock, tree, device))
 
 

@@ -18,16 +18,19 @@ instancing is ROADMAP item A.8.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from pupiloptixlab_tpu.scene.emitters import EmitterType
-from pupiloptixlab_tpu.scene.materials import Material, MatType
-from pupiloptixlab_tpu.scene.scene import Scene
-from pupiloptixlab_tpu.scene.shapes import ShapeType
-from pupiloptixlab_tpu.scene.textures import Texture, TextureType
-from pupiloptixlab_tpu.utils.camera import Camera, CameraDesc
-from pupiloptixlab_tpu.utils.math import transform_normals, transform_points
+from pupiloptixlab_tpu_torch.device import resolve_device
+from pupiloptixlab_tpu_torch.scene.emitters import EmitterType
+from pupiloptixlab_tpu_torch.scene.materials import Material, MatType
+from pupiloptixlab_tpu_torch.scene.scene import Scene
+from pupiloptixlab_tpu_torch.scene.shapes import ShapeType
+from pupiloptixlab_tpu_torch.scene.textures import Texture, TextureType
+from pupiloptixlab_tpu_torch.utils.camera import Camera, CameraDesc
+from pupiloptixlab_tpu_torch.utils.math import transform_normals, transform_points
 from pupiloptixlab_tpu_torch.accel.bvh import build_bvh, bvh_depth, pick_leaf_size
 from pupiloptixlab_tpu_torch.flatten.types import (
     N_SLOTS,
@@ -61,7 +64,7 @@ _DTYPES = {
 }
 
 
-def _t(a, dtype=None, device="cpu") -> torch.Tensor:
+def _t(a, dtype=None, *, device) -> torch.Tensor:
     """numpy/Python value -> tensor on ``device`` with the reference's
     dtype (64-bit floats and ints narrow to 32 bits, as jnp.asarray does
     with x64 off)."""
@@ -333,16 +336,18 @@ def _tessellate_curve(pts: np.ndarray, basis: str, subdiv: int = 8):
     optix builtin curve intersection modules (module.h:20-29). The
     spline math lives in scene/curves.py (linear / quadratic b-spline /
     cubic b-spline / catmull-rom, OptiX window semantics)."""
-    from pupiloptixlab_tpu.scene.curves import tessellate
+    from pupiloptixlab_tpu_torch.scene.curves import tessellate
 
     return tessellate(pts, basis, subdiv)
 
 
 def flatten_scene(
     scene: Scene, pad_tris_to: int = 64, allow_instanced: bool = True,
-    device="cpu",
+    device=None,
 ):
-    """Scene -> (SceneData, RenderConfig) with every table on ``device``."""
+    """Scene -> (SceneData, RenderConfig) with every table on ``device``
+    (``None``: the card; raises where there is none)."""
+    device = resolve_device(device)
     textures = _TextureBuilder()
     materials = _MaterialBuilder(textures)
 
@@ -531,7 +536,7 @@ def flatten_scene(
     # etype 2 = point (EM_V0P = position, radiance tex = intensity),
     # etype 3 = directional (EM_V0N = travel direction, radiance tex =
     # irradiance). Sampling treats them as delta lights (pdf 1, MIS 1).
-    from pupiloptixlab_tpu.scene.textures import rgb_texture
+    from pupiloptixlab_tpu_torch.scene.textures import rgb_texture
 
     for gem in scene.emitters:
         if gem.type not in (EmitterType.POINT, EmitterType.DIRECTIONAL):
@@ -652,7 +657,10 @@ def flatten_scene(
     # Scenes past the sweep's culling sweet spot get a real BVH
     # (accel/bvh.py); its leaf size may exceed the sweep chunk, so pad to
     # whichever is larger.
-    use_bvh = tri_count > 1024
+    # PUPIL_NO_BVH: debug knob forcing the brute-force chunk sweep on
+    # BVH-scale scenes, read here exactly as the reference's flatten reads
+    # it, so the same environment gives both packages the same tables
+    use_bvh = tri_count > 1024 and not os.environ.get("PUPIL_NO_BVH")
     if use_bvh:
         will_stream = _round_up(tri_count, pad_tris_to) * 48 > STREAM_TRI_BYTES
         bvh_tcl = pick_leaf_size(
@@ -948,9 +956,10 @@ def flatten_scene(
     return data, config
 
 
-def camera_block_from_scene(scene: Scene, device="cpu") -> CameraBlock:
-    """Build the device camera uniform from the scene sensor."""
-    from pupiloptixlab_tpu.utils.math import Transform
+def camera_block_from_scene(scene: Scene, device=None) -> CameraBlock:
+    """Build the device camera uniform from the scene sensor (``device``
+    as in ``flatten_scene``)."""
+    from pupiloptixlab_tpu_torch.utils.math import Transform
 
     cam = Camera(
         CameraDesc(
@@ -964,7 +973,8 @@ def camera_block_from_scene(scene: Scene, device="cpu") -> CameraBlock:
     return camera_block(cam, device)
 
 
-def camera_block(cam: Camera, device="cpu") -> CameraBlock:
+def camera_block(cam: Camera, device=None) -> CameraBlock:
+    device = resolve_device(device)
     return CameraBlock(
         sample_to_camera=_t(cam.sample_to_camera, device=device),
         camera_to_world=_t(cam.to_world, device=device),

@@ -48,6 +48,10 @@ KERNELS = {
     "gather_planes": ("gather", "launch_gather_planes",
                       [_P, _I, _I, _P, _I, _P, _P]),
     "count_less": ("gather", "launch_count_less", [_P, _I, _P, _I, _P, _P]),
+    "sweep_closest": ("sweep", "launch_sweep_closest",
+                      [_P] * 8 + [_P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "sweep_anyhit": ("sweep", "launch_sweep_anyhit",
+                     [_P] * 8 + [_P, _P, _P, _I, _I, _I, _P, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

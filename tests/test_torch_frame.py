@@ -71,8 +71,8 @@ def _jax_tables(scene):
                 for f in dataclasses.fields(getattr(jd, g))} for g in GROUPS}
     config = config_from_fields(dataclasses.asdict(jc))
     cam = camera_from_arrays({f.name: np.asarray(getattr(jcam, f.name))
-                              for f in dataclasses.fields(jcam)})
-    return (jd, jc, jcam), (scene_from_arrays(tree, config), config, cam)
+                              for f in dataclasses.fields(jcam)}, device="cpu")
+    return (jd, jc, jcam), (scene_from_arrays(tree, config, device="cpu"), config, cam)
 
 
 def _jax_frames(jd, jc, jcam, seeds):
@@ -135,8 +135,8 @@ def test_mesh_env_own_flatten_renders_the_same_frame(mesh_env):
     """The port's flatten gives the JAX flatten's tables, so its first
     frame is bit-identical to the one from the converted tables."""
     scene, _, converted = mesh_env
-    data, config = flatten_scene(scene)
-    got = _torch_frames(data, config, camera_block_from_scene(scene), [0])
+    data, config = flatten_scene(scene, device="cpu")
+    got = _torch_frames(data, config, camera_block_from_scene(scene, device="cpu"), [0])
     for k in converted[0]:
         np.testing.assert_array_equal(got[0][k], converted[0][k], err_msg=k)
 
@@ -154,14 +154,14 @@ def test_oracle_mat_frames_match_reference():
     _check(got[:1], eager)
     np.testing.assert_allclose(got[0]["normal"], eager[0]["normal"], rtol=1e-5, atol=1e-5)
 
-    own = _torch_frames(*flatten_scene(scene), camera_block_from_scene(scene), [0])
+    own = _torch_frames(*flatten_scene(scene, device="cpu"), camera_block_from_scene(scene, device="cpu"), [0])
     np.testing.assert_array_equal(own[0]["frame"], got[0]["frame"])
 
 
 def test_render_is_a_loop_of_frames():
     scene = _load("oracle_mat.xml", 16, 16)
-    data, config = flatten_scene(scene)
-    cam = camera_block_from_scene(scene)
+    data, config = flatten_scene(scene, device="cpu")
+    cam = camera_block_from_scene(scene, device="cpu")
     img = render(data, cam, config, spp=3, seed0=5)
     assert tuple(img.shape) == (16, 16, 3)
     acc = torch.zeros((256, 3))
@@ -173,8 +173,8 @@ def test_render_is_a_loop_of_frames():
 @pytest.mark.parametrize("change", ["spectral", "debug_checks", "tile_perm"])
 def test_unported_options_raise(change):
     scene = _load("oracle_mat.xml", 8, 8)
-    data, config = flatten_scene(scene)
-    cam = camera_block_from_scene(scene)
+    data, config = flatten_scene(scene, device="cpu")
+    cam = camera_block_from_scene(scene, device="cpu")
     perm = None
     if change == "tile_perm":
         perm = torch.arange(1)
@@ -185,27 +185,40 @@ def test_unported_options_raise(change):
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter without JAX_PLATFORMS (which makes the JAX
-    package's __init__ import jax), the port flattens mesh_env and renders
-    one 128x8 frame on the CPU without importing jax."""
+    """In a fresh interpreter the port loads mesh_env with its own scene
+    layer, flattens it, renders one 128x8 frame, and steps a System with a
+    PTPass on oracle_mat, all on the CPU, importing neither jax nor any
+    module of the JAX package. It runs with JAX_PLATFORMS=cpu set, which
+    makes the JAX package's __init__ import jax: the stricter of the two
+    environments."""
     code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {str(REPO)!r})
         import torch
-        from pupiloptixlab_tpu.scene import load_scene
         from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
+        from pupiloptixlab_tpu_torch.passes import PTPass
         from pupiloptixlab_tpu_torch.render.integrator import render_frame
+        from pupiloptixlab_tpu_torch.scene import load_scene
+        from pupiloptixlab_tpu_torch.system import System
         scene = load_scene({str(DATA / "mesh_env.xml")!r})
         scene.sensor.film.w, scene.sensor.film.h = 128, 8
-        data, config = flatten_scene(scene)
-        acc, bufs = render_frame(data, camera_block_from_scene(scene), 0, 0,
+        data, config = flatten_scene(scene, device="cpu")
+        acc, bufs = render_frame(data, camera_block_from_scene(scene, device="cpu"), 0, 0,
                                  torch.zeros((1024, 3)), config)
         assert bool(torch.isfinite(acc).all()) and float(acc.mean()) > 0
-        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-        print("no jax")
+        system = System(device="cpu")
+        system.add_pass(PTPass())
+        assert system.set_scene({str(DATA / "oracle_mat.xml")!r})
+        system.run(max_frames=2)
+        frame = system.buffers["pt frame"].array
+        assert system.passes[0].sample_cnt == 2 and float(frame.mean()) > 0
+        foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                         or m == "pupiloptixlab_tpu" or m.startswith("pupiloptixlab_tpu."))
+        assert not foreign, foreign
+        print("stands alone")
     """)
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"},
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "no jax" in out.stdout
+    assert "stands alone" in out.stdout

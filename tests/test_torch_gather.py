@@ -106,7 +106,7 @@ def test_count_plain_chunks():
 
 @pytest.fixture(scope="module")
 def mesh_env_tables():
-    return flatten_scene(load_scene(DATA / "mesh_env.xml"))[0]
+    return flatten_scene(load_scene(DATA / "mesh_env.xml"), device="cpu")[0]
 
 
 @pytest.mark.parametrize("name", ["attrs", "env_col_cdf", "pool", "pool_bi", "row_weight"])

@@ -1,6 +1,11 @@
 """Port parity: BVH traversal (K1 closest hit, K2 any hit) and the
 intersection front end, on the CPU.
 
+The chunk-sweep route's front end (``bvh_nodes == 0``) is held here too, on
+oracle_mat and on mesh_env under PUPIL_NO_BVH, against the reference with
+its Pallas sweep kernels in interpret mode; the sweep wrappers themselves
+are in test_torch_sweep.py.
+
 On CPU tensors ``bvh_closest`` / ``bvh_anyhit`` run their plain versions
 (a brute-force sweep in ``_mt_planes``'s arithmetic, ties at equal t going
 to the lowest row). They are held against:
@@ -145,7 +150,7 @@ def test_soup_matches_pallas_kernels():
 def mesh_env():
     scene = load_scene(DATA / "mesh_env.xml")
     scene.sensor.film.w, scene.sensor.film.h = 128, 8
-    data, config = flatten_scene(scene)
+    data, config = flatten_scene(scene, device="cpu")
     tris = data.tris
     bvh = SimpleNamespace(child=tris.bvh_child.numpy(), axis=tris.bvh_axis.numpy(),
                           boxes=tris.bvh_boxes.numpy(), tcl=config.bvh_tcl)
@@ -157,7 +162,7 @@ def _mesh_env_rays(packed, w, h, n, seed):
     their first hits in random directions (as bounce and shadow rays do)."""
     scene = load_scene(DATA / "mesh_env.xml")
     scene.sensor.film.w, scene.sensor.film.h = w, h
-    cam = camera_block_from_scene(scene)
+    cam = camera_block_from_scene(scene, device="cpu")
     r = np.random.default_rng(seed)
     jx, jy = (torch.from_numpy(r.random(w * h, dtype=np.float32)) for _ in range(2))
     ro, rd = generate_rays(cam, w, h, jx, jy)
@@ -247,7 +252,7 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
 def _scene_pair(name, w, h):
     scene = load_scene(DATA / name)
     scene.sensor.film.w, scene.sensor.film.h = w, h
-    return jax_flatten(scene), flatten_scene(scene)
+    return jax_flatten(scene), flatten_scene(scene, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["oracle_mat.xml", "mesh_env.xml"])
@@ -288,9 +293,14 @@ def test_intersect_front_end_matches_reference(name):
     np.testing.assert_array_equal(tocc.numpy(), np.asarray(jocc))
 
 
-def test_chunk_sweep_scene_off_the_cpu_raises():
-    """A scene without a BVH (bvh_nodes == 0) has no ported kernel yet;
-    tables off the CPU must raise, not run plain PyTorch."""
+def test_chunk_sweep_scene_off_the_cpu_raises(monkeypatch):
+    """A scene without a BVH (bvh_nodes == 0) goes to the chunk-sweep
+    kernels: tables off the CPU reach the kernel launcher (which raises
+    here: no nvcc, no card) and never run plain PyTorch."""
+    def no_launcher(name):
+        raise RuntimeError(f"launch {name}")
+
+    monkeypatch.setattr(kernels, "launcher", no_launcher)
     (jd, jc), (td, tc) = _scene_pair("oracle_mat.xml", 8, 8)
     assert tc.bvh_nodes == 0 and tc.tri_count > 0
     meta = {f.name: getattr(td.tris, f.name).to("meta")
@@ -298,5 +308,61 @@ def test_chunk_sweep_scene_off_the_cpu_raises():
     scene = dataclasses.replace(td, tris=dataclasses.replace(td.tris, **meta))
     v = TVec3(*(torch.zeros(4, device="meta") for _ in range(3)))
     t = torch.zeros(4, device="meta")
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(RuntimeError, match="launch sweep_closest"):
         intersect_closest(v, v, t, t, scene, tc)
+    with pytest.raises(RuntimeError, match="launch sweep_anyhit"):
+        intersect_any(v, v, t, t, scene, tc)
+
+
+def _stage_rays(seed, n):
+    """Rays inside oracle_mat's stage: origins around the spheres, random
+    unit directions, a fifth with short intervals."""
+    r = np.random.default_rng(seed)
+    ro = (r.standard_normal((3, n)) * 2.0).astype(np.float32)
+    ro[1] = np.abs(ro[1]) + 0.05
+    rd = r.standard_normal((3, n)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=0, keepdims=True)
+    tmin = np.full(n, 1e-4, np.float32)
+    tmax = np.full(n, MAX_DISTANCE, np.float32)
+    tmax[::5] = r.random(tmax[::5].size, dtype=np.float32) * 3.0
+    return ro, rd, tmin, tmax, r.random(n) > 0.1
+
+
+@pytest.mark.parametrize("name,no_bvh", [("oracle_mat.xml", False), ("mesh_env.xml", True)])
+def test_chunk_sweep_front_end_matches_pallas_interpret(name, no_bvh, monkeypatch):
+    """intersect_closest / intersect_any on the chunk-sweep route (triangles
+    through the plain K5/K6, spheres OR-ed in) against the reference with its
+    Pallas sweep kernels in interpret mode (sorted, padded, un-permuted):
+    kind equal, occlusion equal, prim equal up to exact-t triangle ties, t
+    rtol 3e-5 (the TPU kernel's approximate reciprocal). oracle_mat is one
+    chunk; mesh_env under PUPIL_NO_BVH is 321 chunks in 11 super-boxes."""
+    from pupiloptixlab_tpu.accel import intersect as jax_intersect
+
+    if no_bvh:
+        monkeypatch.setenv("PUPIL_NO_BVH", "1")
+    (jd, jc), (td, tc) = _scene_pair(name, 64, 16)
+    assert jc.bvh_nodes == 0 and tc.bvh_nodes == 0
+    assert td.tris.chunk_boxes.shape[0] == (321 if no_bvh else 1)
+    n = 1024
+    ro, rd, tmin, tmax, mask = _stage_rays(29, n)
+    jargs = (JVec3(*map(jnp.asarray, ro)), JVec3(*map(jnp.asarray, rd)),
+             jnp.asarray(tmin), jnp.asarray(tmax), jd, jc)
+    monkeypatch.setattr(jax_intersect, "_PALLAS_INTERPRET", True)
+    jh = jax_intersect_closest(*jargs, coherent=False, mask=jnp.asarray(mask))
+    jocc = jax_intersect_any(*jargs, coherent=False, mask=jnp.asarray(mask))
+    targs = (TVec3(*map(torch.from_numpy, ro)), TVec3(*map(torch.from_numpy, rd)),
+             torch.from_numpy(tmin), torch.from_numpy(tmax), td, tc)
+    th = intersect_closest(*targs, mask=torch.from_numpy(mask))
+    tocc = intersect_any(*targs, mask=torch.from_numpy(mask))
+    kind, wkind = th.kind.numpy(), np.asarray(jh.kind)
+    np.testing.assert_array_equal(kind, wkind)
+    assert (kind[~mask] == -1).all() and not tocc.numpy()[~mask].any()
+    hit = wkind >= 0
+    assert (kind == 0).any() and (~hit).any()
+    if not no_bvh:
+        assert (kind == 1).any()  # spheres take part
+    np.testing.assert_allclose(th.t.numpy()[hit], np.asarray(jh.t)[hit], rtol=3e-5, atol=0)
+    same = th.prim.numpy() == np.asarray(jh.prim)
+    assert (~same).sum() <= 2 and (kind[~same] == 0).all()
+    np.testing.assert_array_equal(tocc.numpy(), np.asarray(jocc))
+    np.testing.assert_array_equal(tocc.numpy(), hit)

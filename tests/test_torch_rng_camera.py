@@ -83,7 +83,7 @@ def test_camera_rays_match(scene_file, w, h):
     scene = load_scene(DATA / scene_file)
     scene.sensor.film.w, scene.sensor.film.h = w, h
     jcb = jcam_block(scene)
-    tcb = camera_block_from_scene(scene)
+    tcb = camera_block_from_scene(scene, device="cpu")
     for f in dataclasses.fields(jcb):
         a, b = np.asarray(getattr(jcb, f.name)), getattr(tcb, f.name)
         assert b.dtype == torch.float32

@@ -110,7 +110,7 @@ def _scene(name, tmp_path_factory=None):
         else:
             p = DATA / name
         scene = load_scene(p)
-        _cache[name] = (jax_flatten(scene), flatten_scene(scene))
+        _cache[name] = (jax_flatten(scene), flatten_scene(scene, device="cpu"))
     return _cache[name]
 
 
