@@ -19,7 +19,11 @@ Phases (each fails the run on its first fault; nothing is caught):
   4. frame    render_frame on the mesh_env BVH route at 1920x1080, depth 4:
               1 warm-up + 2 timed frames, launch counters reset just before
               and read just after; fails unless K1-K4 each launched
-  5. sweep    K5 (closest) and K6 (any hit) against their plain versions,
+  5. sweep    K3 and K4 again, at the shapes the oracle_mat path gives them
+              (its attribute, sphere, material, emitter and texture tables
+              at the main path's own indices; its emitter-select CDF at its
+              own draws), bit-exact and timed as in phase 3;
+              K5 (closest) and K6 (any hit) against their plain versions,
               exact (row equal, t bit-equal, flag equal) on 65,536-lane
               subsets of the main path's primary, bounce and shadow rays and
               timed at full N, on (a) data/oracle_mat.xml's table (1 chunk),
@@ -27,6 +31,7 @@ Phases (each fails the run on its first fault; nothing is caught):
               11 super-boxes; here K5 at full N must also equal K1 bit for
               bit), (c) seeded triangle soups of 128, 512 and 2,560 rows:
               one case for each branch of the reference's sweep_triangles
+              (checked and timed, but outside the sums of the kernels line)
   6. system   System + PTPass through set_scene / run at 1920x1080, depth 4:
               oracle_mat (1 warm-up + 4 timed frames) and mesh_env under
               PUPIL_NO_BVH (1 warm-up + 2 timed), each with the counters
@@ -53,6 +58,12 @@ over 67 TFLOP/s (FP32 outside the tensor cores), both from the H100 SXM data
 sheet. For the traversals and the culled sweep the operations are a floor
 counted from this run's rays (the box tests every live ray must make and
 the one leaf or chunk every hit ray must test).
+
+In the {"kernels": [...]} line each kernel's ms, plain_ms, library_ms and
+bound_ms are sums over the timed calls at the shapes of the main paths it
+runs on, and its launches the sum over the runs of those same paths
+(launches_by_path has each run's own count): K1, K2 on the mesh_env BVH
+frame; K3, K4 on all three runs; K5, K6 on the two System runs.
 
 Output: progress lines, then a {"kernels": [...]} JSON line, the
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -91,10 +102,21 @@ _PALLAS = "pupiloptixlab_tpu/accel/"
 KERNEL_META = {
     "bvh_closest": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:298"),
     "bvh_anyhit": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:747"),
-    "gather_planes": (_CSRC + "gather.cu", _PALLAS + "gather.py:44"),
+    "gather_planes": (_CSRC + "gather.cu",
+                      _PALLAS + "gather.py:44, " + _PALLAS + "gather.py:152"),
     "count_less": (_CSRC + "gather.cu", _PALLAS + "gather.py:194"),
-    "sweep_closest": (_CSRC + "sweep.cu", _PALLAS + "pallas_intersect.py:198"),
+    "sweep_closest": (_CSRC + "sweep.cu", _PALLAS + "pallas_intersect.py:43, "
+                      + _PALLAS + "pallas_intersect.py:198"),
     "sweep_anyhit": (_CSRC + "sweep.cu", _PALLAS + "pallas_intersect.py:97"),
+}
+# the main-path runs whose launches each kernel is counted on
+PATHS_OF = {
+    "bvh_closest": ("mesh_env_bvh",),
+    "bvh_anyhit": ("mesh_env_bvh",),
+    "gather_planes": ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh"),
+    "count_less": ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh"),
+    "sweep_closest": ("oracle_mat", "mesh_env_nobvh"),
+    "sweep_anyhit": ("oracle_mat", "mesh_env_nobvh"),
 }
 
 
@@ -190,13 +212,14 @@ class Bound:
     def __init__(self):
         self.ms = self.bytes_ms = self.ops_ms = 0.0
 
-    def add(self, n_bytes: float, n_flops: float) -> float:
+    def add(self, n_bytes: float, n_flops: float) -> tuple[float, str]:
+        """This call's own bound and which of the two terms set it."""
         b = n_bytes / HBM_BYTES_PER_S * 1e3
         o = n_flops / FP32_FLOP_PER_S * 1e3
         self.bytes_ms += b
         self.ops_ms += o
         self.ms += max(b, o)
-        return max(b, o)
+        return max(b, o), "bytes" if b >= o else "operations"
 
     def fields(self) -> dict:
         return {"bound_ms": self.ms,
@@ -209,10 +232,15 @@ def nbytes(*tensors) -> int:
 
 def main_path_rays(data, config, cam, seed: int = 0):
     """Primary, first-bounce and first NEE shadow rays exactly as the
-    frame builds them (render_sample + the first _bounce)."""
+    frame builds them (render_sample + the first _bounce), and with them
+    the (table, index) pairs of the first bounce's gathers ("gathers") and
+    the (CDF, draws) of its emitter selection ("counts", empty for a scene
+    without area emitters)."""
     import torch
 
+    from pupiloptixlab_tpu_torch.accel.gather import gather_cols
     from pupiloptixlab_tpu_torch.accel.intersect import intersect_closest
+    from pupiloptixlab_tpu_torch.flatten.types import EM_RAD_TEX, MAT_TWOSIDED
     from pupiloptixlab_tpu_torch.render import bsdf as bsdf_mod
     from pupiloptixlab_tpu_torch.render import emitter as emitter_mod
     from pupiloptixlab_tpu_torch.render import rng
@@ -264,7 +292,28 @@ def main_path_rays(data, config, cam, seed: int = 0):
     bounce_ok = active & ~(is_zero(f_s * torch.abs(wi_s.z)) | is_zero(pdf_s))
     bounce = (geo.position, to_world(wi_s, geo.normal), tmin,
               torch.where(bounce_ok, tmax, -1.0))
-    return {"primary": primary, "bounce": bounce, "shadow": shadow}
+
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    mats = data.materials.packed
+    gathers = {"tris.attrs": (data.tris.attrs, i32(hit.prim)),
+               "materials.packed": (mats, i32(geo.mat_id)),
+               "materials.twosided": (mats[:, MAT_TWOSIDED:MAT_TWOSIDED + 1].contiguous(),
+                                      i32(geo.mat_id))}
+    counts = {}
+    if config.sphere_count:
+        sph = data.spheres.attrs
+        gathers["spheres.attrs"] = (sph, i32(hit.prim.clamp(max=sph.shape[0] - 1)))
+    if config.emitter_count:
+        em = data.emitters
+        erow = gather_cols(em.packed, idx)
+        gathers["emitters.packed"] = (em.packed, i32(idx))
+        gathers["textures.packed"] = (data.textures.packed, i32(erow[EM_RAD_TEX]))
+        counts["emitters.select_cdf"] = (
+            em.select_cdf[:config.emitter_count].contiguous(), u_sel.contiguous())
+    return {"primary": primary, "bounce": bounce, "shadow": shadow,
+            "gathers": gathers, "counts": counts}
 
 
 def planes_of(rays, lanes=None):
@@ -283,11 +332,78 @@ def pick_lanes(n: int, device):
     return torch.randperm(n, generator=gen)[:SUBSET].to(device)
 
 
+def check_gathers(scene, cases, k3, bound):
+    """K3 on each (table, idx) of ``cases``: bit-equal to its plain version
+    and to the one PyTorch call that computes the same planes, and timed
+    beside both; the times and the bound are added to ``k3``'s sums."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import gather as ga
+
+    for label, (table, idx) in cases.items():
+        got = ga.gather_planes(table, idx)
+        want = ga.gather_planes_plain(table, idx)
+        exact = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        safe = idx.clamp(0, table.shape[0] - 1)  # index_select takes no stray index
+        lib = table.index_select(0, safe).t().contiguous()
+        require(bool(torch.equal(lib, want)), f"K3 {scene} {label}: index_select disagrees")
+        ms = cuda_time_ms(lambda: ga.gather_planes(table, idx), reps=10)
+        plain_ms = cuda_time_ms(lambda: ga.gather_planes_plain(table, idx), reps=10)
+        lib_ms = cuda_time_ms(lambda: table.index_select(0, safe).t().contiguous(), reps=10)
+        b_ms, by = bound.add(nbytes(table, idx, got), 0.0)
+        log(f"  K3 {scene} {label} {tuple(table.shape)} N={idx.shape[0]}: bit-equal {exact}, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_select+t {lib_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({by})")
+        require(exact, f"K3 {scene} {label}: kernel disagrees with table[idx].T")
+        k3.setdefault("calls", {})[f"{scene} {label}"] = {
+            "shape": list(table.shape), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
+        k3["ms"] += ms
+        k3["plain_ms"] += plain_ms
+        k3["library_ms"] += lib_ms
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+    k3.update(bound.fields())
+
+
+def check_counts(scene, cases, k4, bound):
+    """K4 on each (cdf, queries) of ``cases``: equal to the plain linear
+    count and to torch.searchsorted (side='left' counts the entries
+    strictly below), and timed beside both; sums go to ``k4``."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import gather as ga
+
+    for label, (cdf, q) in cases.items():
+        require(bool((cdf[1:] >= cdf[:-1]).all()), f"{scene} {label} must be nondecreasing")
+        got = ga.count_less(cdf, q)
+        want = ga.count_less_plain(cdf, q)
+        err = int((got - want).abs().max())
+        lib = torch.searchsorted(cdf, q).to(torch.int32)
+        require(bool(torch.equal(lib, want)), f"K4 {scene} {label}: searchsorted disagrees")
+        ms = cuda_time_ms(lambda: ga.count_less(cdf, q), reps=10)
+        plain_ms = cuda_time_ms(lambda: ga.count_less_plain(cdf, q), reps=3)
+        lib_ms = cuda_time_ms(lambda: torch.searchsorted(cdf, q), reps=10)
+        steps = max(int(cdf.shape[0]).bit_length(), 1)  # compares of a binary search
+        b_ms, by = bound.add(nbytes(cdf, q, got), q.shape[0] * steps)
+        log(f"  K4 {scene} {label} {tuple(cdf.shape)} N={q.shape[0]}: max |diff| {err}, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, searchsorted {lib_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({by})")
+        require(err == 0, f"K4 {scene} {label}: kernel disagrees with the linear count")
+        k4.setdefault("calls", {})[f"{scene} {label}"] = {
+            "shape": list(cdf.shape), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
+        k4["ms"] += ms
+        k4["plain_ms"] += plain_ms
+        k4["library_ms"] += lib_ms
+        k4["max_abs_err"] = max(k4["max_abs_err"], float(err))
+    k4.update(bound.fields())
+
+
 def phase_kernels(data, config, cam, results):
     import torch
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
-    from pupiloptixlab_tpu_torch.accel import gather as ga
 
     tris = data.tris
     tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
@@ -319,12 +435,13 @@ def phase_kernels(data, config, cam, results):
         require(mism == 0 and bit_t, f"K1 {label}: kernel disagrees with the brute sweep")
         ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *tabs, **kw), reps=5)
         plain_ms = host_time_ms(lambda: bt.plain_closest(*full, tris.packed))
-        bound = k1_bound.add(
+        bound, by = k1_bound.add(
             nbytes(*full, *tabs, t_k, i_k),
             live_of(full) * 8 * SLAB_FLOPS
             + int((i_k >= 0).sum()) * config.bvh_tcl * MT_FLOPS_CLOSEST)
         log(f"  K1 {label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound:.4f} ms at N={n}")
+            f"bound {bound:.4f} ms ({by}) at N={n}")
+        k1[f"{label}_bound_by"] = by
         k1[f"{label}_ms"] = ms
         k1[f"{label}_plain_ms"] = plain_ms
         k1[f"{label}_bound_ms"] = bound
@@ -351,11 +468,11 @@ def phase_kernels(data, config, cam, results):
         if label == "shadow":
             k2["ms"] = cuda_time_ms(lambda: bt.bvh_anyhit(*full, *tabs, **kw), reps=5)
             k2["plain_ms"] = host_time_ms(lambda: bt.plain_anyhit(*full, tris.packed))
-            bound = k2_bound.add(
+            bound, by = k2_bound.add(
                 nbytes(*full, *tabs, occ_k),
                 live_of(full) * 8 * SLAB_FLOPS + int(occ_k.sum()) * MT_FLOPS_ANY)
             log(f"  K2 shadow: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.1f} ms, "
-                f"bound {bound:.4f} ms at N={n}")
+                f"bound {bound:.4f} ms ({by}) at N={n}")
         k2["mismatches"] += mism
         k2["max_abs_err"] = max(k2["max_abs_err"], float(mism > 0))
     k2.update(k2_bound.fields())
@@ -381,53 +498,19 @@ def phase_kernels(data, config, cam, results):
     }
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
     k3_bound = Bound()
-    for label, (table, idx) in cases.items():
-        got = ga.gather_planes(table, idx)
-        want = ga.gather_planes_plain(table, idx)
-        exact = bool(torch.equal(got, want))
-        err = float((got - want).abs().max())
-        safe = idx.clamp(0, table.shape[0] - 1)  # index_select takes no stray index
-        lib = table.index_select(0, safe).t().contiguous()
-        require(bool(torch.equal(lib, want)), f"K3 {label}: index_select disagrees")
-        ms = cuda_time_ms(lambda: ga.gather_planes(table, idx), reps=10)
-        plain_ms = cuda_time_ms(lambda: ga.gather_planes_plain(table, idx), reps=10)
-        lib_ms = cuda_time_ms(lambda: table.index_select(0, safe).t().contiguous(), reps=10)
-        bound = k3_bound.add(nbytes(table, idx, got), 0.0)
-        log(f"  K3 {label} {tuple(table.shape)}: bit-equal {exact}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, index_select+t {lib_ms:.3f} ms, bound {bound:.4f} ms")
-        require(exact, f"K3 {label}: kernel disagrees with table[idx].T")
-        k3[f"{label}_ms"], k3[f"{label}_plain_ms"] = ms, plain_ms
-        k3[f"{label}_library_ms"], k3[f"{label}_bound_ms"] = lib_ms, bound
-        k3["ms"] += ms
-        k3["plain_ms"] += plain_ms
-        k3["library_ms"] += lib_ms
-        k3["max_abs_err"] = max(k3["max_abs_err"], err)
-    k3.update(k3_bound.fields())
+    check_gathers("mesh_env", cases, k3, k3_bound)
     out["gather_planes"] = k3
 
-    # K4 count below the env row CDF (flat runs where env rows are black),
-    # beside torch.searchsorted (side='left' counts the entries strictly below)
+    # K4 count below the env row CDF (flat runs where env rows are black)
     cdf = em.env_row_cdf
-    require(bool((cdf[1:] >= cdf[:-1]).all()), "env_row_cdf must be nondecreasing")
     q = torch.rand(n, generator=g, device=dev)
     q[:cdf.shape[0]] = cdf  # exact table values: side='left' semantics
-    got = ga.count_less(cdf, q)
-    want = ga.count_less_plain(cdf, q)
-    err = int((got - want).abs().max())
-    lib = torch.searchsorted(cdf, q).to(torch.int32)
-    require(bool(torch.equal(lib, want)), "K4: torch.searchsorted disagrees")
-    ms = cuda_time_ms(lambda: ga.count_less(cdf, q), reps=10)
-    plain_ms = cuda_time_ms(lambda: ga.count_less_plain(cdf, q), reps=3)
-    lib_ms = cuda_time_ms(lambda: torch.searchsorted(cdf, q), reps=10)
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
     k4_bound = Bound()
-    steps = max(int(cdf.shape[0]).bit_length(), 1)  # compares of a binary search
-    bound = k4_bound.add(nbytes(cdf, q, got), n * steps)
-    log(f"  K4 env_row_cdf {tuple(cdf.shape)}: max |diff| {err}, kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, searchsorted {lib_ms:.3f} ms, bound {bound:.4f} ms")
-    require(err == 0, "K4: kernel disagrees with the linear count")
-    out["count_less"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "max_abs_err": float(err), **k4_bound.fields()}
+    check_counts("mesh_env", {"env_row_cdf": (cdf, q)}, k4, k4_bound)
+    out["count_less"] = k4
     results["kernels"] = out
+    return {"gather_planes": k3_bound, "count_less": k4_bound}
 
 
 def phase_frame(data, config, cam, results):
@@ -498,11 +581,13 @@ def make_soup(rows: int, device):
     return tri.to(device), boxes.to(device)
 
 
-def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, details):
+def check_sweeps(case, tri, boxes, rays, lanes, plain_full, summed, k5, k6, bounds,
+                 details):
     """K5 and K6 on one table: exact against the plain versions on the lane
     subset, timed at full N; the plain versions are timed at full N for the
-    ray sets named in ``plain_full`` and only those calls enter the sums of
-    ``k5`` / ``k6`` (kernel, plain and bound over the same work)."""
+    ray sets named in ``plain_full``, and with ``summed`` (a main path's
+    own table) those calls enter the sums of ``k5`` / ``k6`` (kernel, plain
+    and bound over the same work)."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import sweep as sw
@@ -511,11 +596,12 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, deta
     n_chunks = tri.shape[0] // sw.CHUNK
     n_groups = sw.group_count(n_chunks)
     culled = n_groups > 1
-    tables = (tri, boxes) if culled else (tri,)
+    sboxes = sw.super_boxes(boxes)  # once per table, as the flatten builds them
+    tables = (tri, boxes, sboxes) if culled else (tri,)
     out = {"rows": tri.shape[0], "chunks": n_chunks, "groups": n_groups}
     for label in ("primary", "bounce"):
         full = planes_of(rays[label])
-        t_k, i_k = sw.sweep_closest(*full, tri, boxes)
+        t_k, i_k = sw.sweep_closest(*full, tri, boxes, sboxes)
         sub = planes_of(rays[label], lanes)
         t_p, i_p = sw.plain_sweep_closest(*sub, tri, boxes)
         t_ks, i_ks = t_k[lanes], i_k[lanes]
@@ -523,7 +609,7 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, deta
         bit_t = bool(torch.equal(t_ks, t_p))
         hits = int((i_p >= 0).sum())
         err = float((t_ks - t_p).abs().max())
-        ms = cuda_time_ms(lambda: sw.sweep_closest(*full, tri, boxes), reps=3)
+        ms = cuda_time_ms(lambda: sw.sweep_closest(*full, tri, boxes, sboxes), reps=3)
         live = int((full[7] > full[6]).sum())
         flops = (live * n_groups * SLAB_FLOPS
                  + int((i_k >= 0).sum()) * sw.CHUNK * MT_FLOPS_CLOSEST
@@ -535,10 +621,13 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, deta
         if label in plain_full:
             rec["plain_ms"] = host_time_ms(
                 lambda: sw.plain_sweep_closest(*full, tri, boxes))
-            rec["bound_ms"] = bounds["sweep_closest"].add(n_bytes, flops)
-            k5["ms"] += ms
-            k5["plain_ms"] += rec["plain_ms"]
-            msg += f", plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms"
+            rec["bound_ms"], rec["bound_by"] = (
+                bounds["sweep_closest"] if summed else Bound()).add(n_bytes, flops)
+            if summed:
+                k5["ms"] += ms
+                k5["plain_ms"] += rec["plain_ms"]
+            msg += (f", plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']})")
         log(msg + f" at N={n}")
         require(mism == 0 and bit_t, f"K5 {case} {label}: kernel disagrees with its plain version")
         k5["max_abs_err"] = max(k5["max_abs_err"], err)
@@ -546,11 +635,11 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, deta
         out[f"closest_{label}"] = rec
     for label in ("shadow", "bounce"):
         full = planes_of(rays[label])
-        occ_k = sw.sweep_anyhit(*full, tri, boxes)
+        occ_k = sw.sweep_anyhit(*full, tri, boxes, sboxes)
         sub = planes_of(rays[label], lanes)
         occ_p = sw.plain_sweep_anyhit(*sub, tri, boxes)
         mism = int((occ_k[lanes] != occ_p).sum())
-        ms = cuda_time_ms(lambda: sw.sweep_anyhit(*full, tri, boxes), reps=3)
+        ms = cuda_time_ms(lambda: sw.sweep_anyhit(*full, tri, boxes, sboxes), reps=3)
         live = int((full[7] > full[6]).sum())
         occluded = int(occ_k.sum())
         flops = (live * n_groups * SLAB_FLOPS + occluded * MT_FLOPS_ANY
@@ -563,10 +652,13 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, deta
         if label in plain_full:
             rec["plain_ms"] = host_time_ms(
                 lambda: sw.plain_sweep_anyhit(*full, tri, boxes))
-            rec["bound_ms"] = bounds["sweep_anyhit"].add(n_bytes, flops)
-            k6["ms"] += ms
-            k6["plain_ms"] += rec["plain_ms"]
-            msg += f", plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms"
+            rec["bound_ms"], rec["bound_by"] = (
+                bounds["sweep_anyhit"] if summed else Bound()).add(n_bytes, flops)
+            if summed:
+                k6["ms"] += ms
+                k6["plain_ms"] += rec["plain_ms"]
+            msg += (f", plain {rec['plain_ms']:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+                    f"({rec['bound_by']})")
         log(msg + f" at N={n}")
         require(mism == 0, f"K6 {case} {label}: kernel disagrees with its plain version")
         k6["max_abs_err"] = max(k6["max_abs_err"], float(mism > 0))
@@ -575,9 +667,10 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, k5, k6, bounds, deta
     details[case] = out
 
 
-def phase_sweep(mesh_bvh, results):
+def phase_sweep(mesh_bvh, bounds, results):
     """Phase 5; ``mesh_bvh`` = mesh_env's BVH tables and config at 1080p,
-    for K1 on the same rays."""
+    for K1 on the same rays; ``bounds`` = K3's and K4's running bounds from
+    phase 3, which the oracle_mat calls add to."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
@@ -586,7 +679,7 @@ def phase_sweep(mesh_bvh, results):
     k5 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "mismatches": 0,
           "library_ms": None}
     k6 = dict(k5)
-    bounds = {"sweep_closest": Bound(), "sweep_anyhit": Bound()}
+    bounds = {**bounds, "sweep_closest": Bound(), "sweep_anyhit": Bound()}
     details: dict = {}
 
     # (a) oracle_mat's own table: one 64-row chunk, no box read
@@ -596,15 +689,24 @@ def phase_sweep(mesh_bvh, results):
     n = config.width * config.height
     lanes = pick_lanes(n, data.tris.packed.device)
     rays_mat = main_path_rays(data, config, cam)
+    # K3 and K4 at the shapes this path gives them: its own tables at the
+    # first bounce's indices, its emitter-select CDF at the first draws
+    require(len(rays_mat["gathers"]) == 6 and len(rays_mat["counts"]) == 1,
+            "oracle_mat must gather from triangles, spheres, materials, emitters and "
+            "textures and select among area emitters")
+    check_gathers("oracle_mat", rays_mat["gathers"], results["kernels"]["gather_planes"],
+                  bounds["gather_planes"])
+    check_counts("oracle_mat", rays_mat["counts"], results["kernels"]["count_less"],
+                 bounds["count_less"])
     check_sweeps("oracle_mat", data.tris.packed, data.tris.chunk_boxes, rays_mat, lanes,
-                 ("primary", "bounce", "shadow"), k5, k6, bounds, details)
+                 ("primary", "bounce", "shadow"), True, k5, k6, bounds, details)
 
     # (c) soups in oracle_mat's stage under oracle_mat's rays: 2 chunks (the
     # reference's _kernel_grid), 8 chunks (unrolled, no culling), 40 chunks
     # (2 super-boxes, culled)
     for rows in (128, 512, 2560):
         tri, boxes = make_soup(rows, data.tris.packed.device)
-        check_sweeps(f"soup_{rows}", tri, boxes, rays_mat, lanes, ("primary",),
+        check_sweeps(f"soup_{rows}", tri, boxes, rays_mat, lanes, ("primary",), False,
                      k5, k6, bounds, details)
     del data, rays_mat
 
@@ -616,7 +718,7 @@ def phase_sweep(mesh_bvh, results):
             f"{tris.chunk_boxes.shape[0]} chunks")
     rays = main_path_rays(data, config, cam)
     check_sweeps("mesh_env_nobvh", tris.packed, tris.chunk_boxes, rays, lanes,
-                 ("primary", "shadow"), k5, k6, bounds, details)
+                 ("primary", "shadow"), True, k5, k6, bounds, details)
     # K5 against K1 at full N on the same rays. The two tables hold the same
     # triangles in another row order, so rows are compared by their content.
     bvh_data, bvh_config = mesh_bvh
@@ -624,7 +726,7 @@ def phase_sweep(mesh_bvh, results):
                bvh_data.tris.bvh_boxes)
     for label in ("primary", "bounce"):
         full = planes_of(rays[label])
-        t5, i5 = sw.sweep_closest(*full, tris.packed, tris.chunk_boxes)
+        t5, i5 = sw.sweep_closest(*full, tris.packed, tris.chunk_boxes, tris.super_boxes)
         t1, i1 = bt.bvh_closest(*full, *bt_tabs, tcl=bvh_config.bvh_tcl,
                                 depth=bvh_data.tris.bvh_depth)
         bit_t = bool(torch.equal(t5, t1))
@@ -868,19 +970,21 @@ def main() -> int:
         f"depth {data.tris.bvh_depth}")
     with torch.inference_mode():
         log("[kernels] K1-K4, each against its plain version")
-        phase_kernels(data, config, cam, results)
+        bounds = phase_kernels(data, config, cam, results)
         log("[frame] mesh_env BVH route, render_frame, 1 warm-up + 2 timed")
         launches = phase_frame(data, config, cam, results)
-        log("[sweep] K5 and K6, each against its plain version")
-        phase_sweep((data, config), results)
+        log("[sweep] K3, K4 on oracle_mat's tables; K5 and K6, each against its plain version")
+        phase_sweep((data, config), bounds, results)
     del data
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         log("[system] System + PTPass at 1920x1080, depth 4")
-        sweep_launches = phase_system("oracle_mat", ORACLE_MAT, 1, 4, False,
-                                      Path(tmp), results)
+        runs = {"mesh_env_bvh": launches}
+        runs["oracle_mat"] = phase_system("oracle_mat", ORACLE_MAT, 1, 4, False,
+                                          Path(tmp), results)
         torch.cuda.empty_cache()
-        phase_system("mesh_env_nobvh", MESH_ENV, 1, 2, True, Path(tmp), results)
+        runs["mesh_env_nobvh"] = phase_system("mesh_env_nobvh", MESH_ENV, 1, 2, True,
+                                              Path(tmp), results)
     torch.cuda.empty_cache()
     log("[parity] card vs CPU, BVH vs chunk sweep")
     phase_parity(results)
@@ -897,15 +1001,18 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
 
-    # launches: K1, K2 from the BVH frame's run, the others from the
-    # oracle_mat run through System + PTPass
+    # each kernel's launches over the runs of the main paths it is on (each
+    # run had the counts set to 0 just before and read just after): the
+    # paths whose shapes its ms, plain_ms and bound_ms were taken at
     line = []
     for name, (source, replaces) in KERNEL_META.items():
         k = results["kernels"][name]
-        run = launches if name.startswith("bvh_") else sweep_launches
+        by_path = {path: runs[path][name] for path in PATHS_OF[name]}
+        require(all(v > 0 for v in by_path.values()),
+                f"{name} was not launched on a path it is counted on: {by_path}")
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": run[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],

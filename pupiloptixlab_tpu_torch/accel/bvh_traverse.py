@@ -6,9 +6,10 @@ and ``bvh_anyhit``. Kernels (csrc/bvh_traverse.cu):
   bvh_closest (K1) <- _make_closest_kernel
   bvh_anyhit  (K2) <- _make_anyhit_kernel
 
-The plain versions are the brute-force sweep of accel/sweep.py
-(``brute_sweep``) over every triangle: the closest hit with ties at equal
-t going to the lowest row. The kernels return exactly that (t, row), bit for bit.
+The plain versions (``plain_closest`` for K1, ``plain_anyhit`` for K2) are
+the brute-force sweep of accel/sweep.py over every triangle: the closest
+hit with ties at equal t going to the lowest row, a miss (1e16, -1). The
+kernels return exactly that (t, row), bit for bit.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from pupiloptixlab_tpu_torch import kernels
-from pupiloptixlab_tpu_torch.accel.sweep import brute_sweep
+from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_anyhit as plain_anyhit
+from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_closest as plain_closest
 
 STACK_SIZE = 64  # per-thread traversal stack of the CUDA kernels
 
@@ -25,18 +27,6 @@ def stack_fits(depth: int) -> bool:
     """The kernels pop one node and push up to eight children per level,
     so a tree of ``depth`` levels needs at most 7 * depth + 1 entries."""
     return 7 * depth + 1 <= STACK_SIZE
-
-
-def plain_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri):
-    """Plain version of K1: brute-force closest hit (t, row); a miss is
-    (1e16, -1)."""
-    return brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=False)
-
-
-def plain_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri):
-    """Plain version of K2: ``plain_closest(...).idx >= 0`` as int32."""
-    _, idx = brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=True)
-    return (idx >= 0).to(torch.int32)
 
 
 def _check_args(name, planes, tri, child, axis, boxes, tcl, depth):

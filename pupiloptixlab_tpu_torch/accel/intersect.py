@@ -71,7 +71,8 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
             tcl=config.bvh_tcl, depth=tris.bvh_depth,
         )
     else:
-        t, idx = sweep_closest(*planes, tris.packed, tris.chunk_boxes)
+        t, idx = sweep_closest(*planes, tris.packed, tris.chunk_boxes,
+                               tris.super_boxes)
     hit = idx >= 0
     return (
         torch.where(hit, t, MAX_DISTANCE),
@@ -244,7 +245,8 @@ def intersect_any(
                 tcl=config.bvh_tcl, depth=tris.bvh_depth,
             )
         else:
-            occ = sweep_anyhit(*planes, tris.packed, tris.chunk_boxes)
+            occ = sweep_anyhit(*planes, tris.packed, tris.chunk_boxes,
+                               tris.super_boxes)
         occluded = occ != 0
         if config.sphere_count > 0:
             _, hit_s = _sphere_tests(ro, rd, scene, tmin, tmax)

@@ -8,9 +8,8 @@ Kernels (csrc/sweep.cu):
   sweep_anyhit  (K6) <- _kernel_grid_any
 
 The plain versions are the brute-force sweep over every row with no
-culling, as ``plain_closest`` of accel/bvh_traverse.py is (they share
-``brute_sweep``). The kernels return exactly that (t, row) and flag, bit
-for bit: above 32 chunks they skip chunks and 32-chunk groups whose boxes
+culling; accel/bvh_traverse.py takes them as its own plain versions. The
+kernels return exactly that (t, row) and flag, bit for bit: above 32 chunks they skip chunks and 32-chunk groups whose boxes
 a ray cannot improve in, which changes no lane. The reference pads N to
 its ray tile; the CUDA kernels take any N.
 """
@@ -94,14 +93,16 @@ def brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit: bool):
     return tbest, ibest
 
 
-def plain_sweep_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes):
-    """Plain version of K5: brute-force closest hit (t, row) over every row;
+def plain_sweep_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes=None):
+    """Plain version of K5 (and of K1, as ``plain_closest`` of
+    accel/bvh_traverse.py): brute-force closest hit (t, row) over every row;
     ``boxes`` is accepted and unused."""
     return brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=False)
 
 
-def plain_sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes):
-    """Plain version of K6: ``plain_sweep_closest(...).row >= 0`` as int32."""
+def plain_sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes=None):
+    """Plain version of K6 (and of K2): ``plain_sweep_closest(...).row >= 0``
+    as int32."""
     _, idx = brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit=True)
     return (idx >= 0).to(torch.int32)
 
@@ -115,7 +116,8 @@ def group_count(n_chunks: int) -> int:
 def super_boxes(boxes: torch.Tensor) -> torch.Tensor:
     """(G, 8) boxes over each group of ``GROUP`` chunk boxes, the last group
     padded with inverted never-hit boxes, as the reference's wrapper builds
-    them (pallas_intersect.py:389-405)."""
+    them (pallas_intersect.py:389-405). They are constant per scene: the
+    flatten builds them once (``TriSoup.super_boxes``)."""
     n_chunks = boxes.shape[0]
     n_groups = group_count(n_chunks)
     pad = n_groups * GROUP - n_chunks
@@ -129,7 +131,7 @@ def super_boxes(boxes: torch.Tensor) -> torch.Tensor:
     ).contiguous()
 
 
-def _check_args(name, planes, tri, boxes):
+def _check_args(name, planes, tri, boxes, sboxes):
     dev = tri.device
     n = planes[0].shape[0]
     for i, p in enumerate(planes):
@@ -137,7 +139,8 @@ def _check_args(name, planes, tri, boxes):
                 or p.shape[0] != n or not p.is_contiguous()):
             raise ValueError(f"{name}: ray plane {i} must be a contiguous (N,) "
                              f"float32 tensor on {dev}")
-    for label, t, width in (("tri", tri, 12), ("chunk_boxes", boxes, 8)):
+    for label, t, width in (("tri", tri, 12), ("chunk_boxes", boxes, 8),
+                            ("super_boxes", sboxes, 8)):
         if (t.device != dev or t.dtype != torch.float32 or t.dim() != 2
                 or t.shape[1] != width or not t.is_contiguous()):
             raise ValueError(f"{name}: {label} must be contiguous float32 "
@@ -148,13 +151,17 @@ def _check_args(name, planes, tri, boxes):
     n_chunks = tri.shape[0] // CHUNK
     if boxes.shape[0] != n_chunks:
         raise ValueError(f"{name}: {boxes.shape[0]} chunk boxes for {n_chunks} chunks")
-    return n, n_chunks
-
-
-def _launch(name, planes, tri, boxes, outs):
-    n, n_chunks = _check_args(name, planes, tri, boxes)
     n_groups = group_count(n_chunks)
-    sboxes = super_boxes(boxes) if n_groups > 1 else boxes
+    if n_groups > 1 and sboxes.shape[0] != n_groups:
+        raise ValueError(f"{name}: {sboxes.shape[0]} super-boxes for {n_groups} "
+                         f"groups of {GROUP} chunks")
+    return n, n_chunks, n_groups
+
+
+def _launch(name, planes, tri, boxes, sboxes, outs):
+    if sboxes is None:
+        sboxes = super_boxes(boxes)
+    n, n_chunks, n_groups = _check_args(name, planes, tri, boxes, sboxes)
     fn = kernels.launcher(name)
     kernels.LAUNCHES[name] += 1
     rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), boxes.data_ptr(),
@@ -163,25 +170,26 @@ def _launch(name, planes, tri, boxes, outs):
     kernels.check(rc, name)
 
 
-def sweep_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes):
+def sweep_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes, sboxes=None):
     """Closest-hit sweep over ray planes (N,) each; ``tri`` (T, 12) with T a
     multiple of 64 (padding rows all zero), ``boxes`` (T/64, 8) chunk
-    AABBs. Returns (t, row) with (1e16, -1) on a miss."""
+    AABBs, ``sboxes`` their ``super_boxes`` (read above 32 chunks only;
+    built here when not given). Returns (t, row) with (1e16, -1) on a miss."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
     if tri.device.type == "cpu":
         return plain_sweep_closest(*planes, tri, boxes)
     n = rox.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
     i_out = torch.empty(n, dtype=torch.int32, device=tri.device)
-    _launch("sweep_closest", planes, tri, boxes, (t_out, i_out))
+    _launch("sweep_closest", planes, tri, boxes, sboxes, (t_out, i_out))
     return t_out, i_out
 
 
-def sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes):
+def sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes, sboxes=None):
     """Occlusion-only sweep; returns (N,) int32 (1 = occluded)."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
     if tri.device.type == "cpu":
         return plain_sweep_anyhit(*planes, tri, boxes)
     occ = torch.empty(rox.shape[0], dtype=torch.int32, device=tri.device)
-    _launch("sweep_anyhit", planes, tri, boxes, (occ,))
+    _launch("sweep_anyhit", planes, tri, boxes, sboxes, (occ,))
     return occ

@@ -17,6 +17,7 @@ from dataclasses import fields
 import numpy as np
 
 from pupiloptixlab_tpu_torch.accel.bvh import bvh_depth
+from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.device import resolve_device
 from pupiloptixlab_tpu_torch.flatten.flatten import _t
 from pupiloptixlab_tpu_torch.flatten.types import (
@@ -41,9 +42,12 @@ _GROUPS = {
 }
 
 
+_DERIVED = ("bvh_depth", "super_boxes")  # TriSoup fields made here, not carried
+
+
 def _table(cls, leaves: dict, device):
     device = resolve_device(device)
-    names = [f.name for f in fields(cls) if f.name != "bvh_depth"]
+    names = [f.name for f in fields(cls) if f.name not in _DERIVED]
     missing = set(names) - set(leaves)
     if missing:
         raise KeyError(f"{cls.__name__}: missing fields {sorted(missing)}")
@@ -53,7 +57,8 @@ def _table(cls, leaves: dict, device):
 def scene_from_arrays(tree: dict, config: RenderConfig, device=None) -> SceneData:
     parts = {g: _table(cls, tree[g], device) for g, cls in _GROUPS.items()}
     depth = bvh_depth(np.asarray(tree["tris"]["bvh_child"])) if config.bvh_nodes > 0 else 0
-    parts["tris"] = TriSoup(**parts["tris"], bvh_depth=depth)
+    parts["tris"] = TriSoup(**parts["tris"], bvh_depth=depth,
+                            super_boxes=super_boxes(parts["tris"]["chunk_boxes"]))
     for g, cls in _GROUPS.items():
         if g != "tris":
             parts[g] = cls(**parts[g])

@@ -32,6 +32,7 @@ from pupiloptixlab_tpu_torch.scene.textures import Texture, TextureType
 from pupiloptixlab_tpu_torch.utils.camera import Camera, CameraDesc
 from pupiloptixlab_tpu_torch.utils.math import transform_normals, transform_points
 from pupiloptixlab_tpu_torch.accel.bvh import build_bvh, bvh_depth, pick_leaf_size
+from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.flatten.types import (
     N_SLOTS,
     SLOT_ALPHA,
@@ -778,9 +779,11 @@ def flatten_scene(
     boxes[:, 0:3] = lo_all.reshape(n_chunks, tc, 3).min(axis=1)
     boxes[:, 3:6] = hi_all.reshape(n_chunks, tc, 3).max(axis=1)
 
+    chunk_boxes = _t(boxes, device=device)
     tris = TriSoup(
         packed=_t(packed, device=device),
-        chunk_boxes=_t(boxes, device=device),
+        chunk_boxes=chunk_boxes,
+        super_boxes=super_boxes(chunk_boxes),
         attrs=_t(attrs, device=device),
         mat_id=_t(attrs[:, TRI_MAT].astype(np.int32), device=device),
         emitter_id=_t(attrs[:, TRI_EMITTER].astype(np.int32), device=device),

@@ -106,6 +106,7 @@ class MaterialTable:
 class TriSoup:
     """World-space triangle table, BVH node tables (8-wide, accel/bvh.py)
     and the instancing placeholders (1-row; instancing is not ported).
+    ``super_boxes`` is derived from ``chunk_boxes`` once, for the culled sweep.
     ``bvh_depth`` is the tree depth (root = 1), recorded at flatten time
     so the traversal kernel can check its per-thread stack bound."""
 
@@ -121,6 +122,7 @@ class TriSoup:
     leaf_inst: torch.Tensor
     inst_w2o: torch.Tensor
     inst_packed: torch.Tensor
+    super_boxes: torch.Tensor  # (G, 8) over groups of 32 chunk boxes (accel/sweep.py)
     bvh_depth: int = 0
 
 

@@ -23,6 +23,7 @@ from pupiloptixlab_tpu.accel.bvh import build_bvh as jax_build_bvh
 from pupiloptixlab_tpu.flatten import flatten_scene as jax_flatten
 from pupiloptixlab_tpu.scene import load_scene
 from pupiloptixlab_tpu_torch.accel.bvh import build_bvh, bvh_depth, pick_leaf_size
+from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.flatten import camera_block, camera_block_from_scene, flatten_scene
 from pupiloptixlab_tpu_torch.flatten.convert import config_from_fields, scene_from_arrays
 from pupiloptixlab_tpu_torch.flatten.flatten import _t
@@ -216,6 +217,9 @@ def test_pupil_no_bvh_gives_both_packages_the_sweep_tables(monkeypatch):
     for f in ("packed", "chunk_boxes", "attrs", "mat_id", "emitter_id"):
         np.testing.assert_array_equal(getattr(td.tris, f).numpy(),
                                       np.asarray(getattr(jd.tris, f)), err_msg=f)
+    # the culled sweep's second level is built once, here
+    assert tuple(td.tris.super_boxes.shape) == (11, 8)
+    assert torch.equal(td.tris.super_boxes, super_boxes(td.tris.chunk_boxes))
     monkeypatch.delenv("PUPIL_NO_BVH")
     assert flatten_scene(port_load_scene(DATA / "mesh_env.xml"), device="cpu")[1].bvh_nodes == 316
 

@@ -189,6 +189,9 @@ def test_arguments_are_checked():
         sw.sweep_closest(*p[:7], torch.zeros(5, device="meta"), tri, boxes)
     with pytest.raises(ValueError, match="tri must be"):
         sw.sweep_closest(*p, tri.to(torch.float64), boxes)
+    big = torch.zeros((40 * 64, 12), device="meta")
+    with pytest.raises(ValueError, match="1 super-boxes for 2 groups"):
+        sw.sweep_closest(*p, big, torch.zeros((40, 8), device="meta"), boxes)
 
 
 def test_device_tensors_never_take_the_plain_version(monkeypatch):
