@@ -49,6 +49,36 @@ Phases (each fails the run on its first fault; nothing is caught):
               tests/data/oracle_mesh_env_64.exr (mean ratio within 0.02, rel
               MSE < 1.5e-2) and oracle_mat against tests/data/oracle_mat_64.exr
               (mean ratio within 0.01, rel MSE < 4e-3, 4x4-box rel MSE < 1e-3)
+ 10. big_env  tools/make_big_scene.py (grid 450: 405,002 triangles, a 19.4 MB
+              triangle table, 32-row leaves, the size the reference streams
+              through its DMA ring) flattened at 1920x1080: K1 on primary and
+              bounce rays and K2 on shadow rays exact against their plain
+              versions on 65,536-lane subsets (the plain sweep over 405k rows
+              at every lane would take minutes) and timed at full N; K3 and K4
+              at its shapes; render_frame 1 warm-up + 2 timed with the counts
+              reset before and read after (K1-K4 must launch); the oracle gate
+              of tests/test_oracle_parity.py at 48x48, 128 spp
+              (tests/data/oracle_big_env_48.exr: mean ratio within 0.03,
+              4x4-box rel MSE < 2e-2)
+ 11. instanced pupiloptixlab_tpu_torch.scene.instanced_grid: 64 instances of an
+              8,192-triangle shape, a floor and an envmap, through System +
+              PTPass at 1920x1080, depth 4 (instanced tables: 8,256 unique
+              rows, 8,193 world leaves of 64 rows, 65 instances): 1 warm-up +
+              2 timed frames with the counts reset before and read after (K7,
+              K8, K3, K4 must launch, K1, K2, K5, K6 must not); K7 on primary
+              and bounce rays, K8 on shadow rays exact against their plain
+              leaf scans on 65,536-lane subsets (t bit-equal, row and leaf
+              equal, flags equal) and timed at full N; K3 on the instance
+              tables (I,12) and (I,16) and the rest of the path's tables, K4
+              on its env CDF; the instanced frame against the same scene's
+              baked tables (524,290 rows on K1/K2) at equal seeds (99.5% of
+              pixels within 2e-3, mean ratio within 2e-3); card against CPU
+              frames at a 32x18 film (the phase 7 limits)
+ 12. refit    World.render_objects moves one instance and hides another, on
+              the instanced scene and on mesh_env (baked): get_scene_data must
+              refit without a flatten (counted), keep the instanced object
+              tables as they are, and give a fresh flatten's tables on live
+              rows; refit and fresh flatten are timed
   9. no-jax   neither 'jax' nor any module of the JAX package is in sys.modules
 
 Each kernel's bound_ms is the least time the card could take for the timed
@@ -63,7 +93,10 @@ In the {"kernels": [...]} line each kernel's ms, plain_ms, library_ms and
 bound_ms are sums over the timed calls at the shapes of the main paths it
 runs on, and its launches the sum over the runs of those same paths
 (launches_by_path has each run's own count): K1, K2 on the mesh_env BVH
-frame; K3, K4 on all three runs; K5, K6 on the two System runs.
+frame and the big_env frame; K3, K4 on all five runs; K5, K6 on the two
+chunk-sweep System runs; K7, K8 on the instanced System run. On big_env and
+the instanced scene the plain versions are timed on the 65,536-lane subset
+they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
 
 Output: progress lines, then a {"kernels": [...]} JSON line, the
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -89,8 +122,14 @@ ORACLE_MAT = DATA / "oracle_mat.xml"
 ORACLE_EXR = {
     "mesh_env": REPO / "tests" / "data" / "oracle_mesh_env_64.exr",
     "oracle_mat": REPO / "tests" / "data" / "oracle_mat_64.exr",
+    "big_env": REPO / "tests" / "data" / "oracle_big_env_48.exr",
 }
 SUBSET = 65536
+FILM = (1920, 1080)
+BIG_GRID = 450              # tools/make_big_scene.py grid: 405,002 triangles
+INST_N, INST_GRID = 64, 64  # instances, and grid of the repeated shape (8,192 tris)
+SKY = DATA / "env" / "sky.exr"
+DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 MT_FLOPS_CLOSEST = 55       # per triangle test, the reference's cost estimates
@@ -100,23 +139,32 @@ SLAB_FLOPS = 22             # 6 sub/mul pairs + 10 min/max per box test
 _CSRC = "pupiloptixlab_tpu_torch/csrc/"
 _PALLAS = "pupiloptixlab_tpu/accel/"
 KERNEL_META = {
-    "bvh_closest": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:298"),
-    "bvh_anyhit": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:747"),
+    "bvh_closest": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:298, "
+                    + _PALLAS + "pallas_bvh.py:447 (stream=True)"),
+    "bvh_anyhit": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:747, "
+                   + _PALLAS + "pallas_bvh.py:855 (stream=True)"),
     "gather_planes": (_CSRC + "gather.cu",
                       _PALLAS + "gather.py:44, " + _PALLAS + "gather.py:152"),
     "count_less": (_CSRC + "gather.cu", _PALLAS + "gather.py:194"),
     "sweep_closest": (_CSRC + "sweep.cu", _PALLAS + "pallas_intersect.py:43, "
                       + _PALLAS + "pallas_intersect.py:198"),
     "sweep_anyhit": (_CSRC + "sweep.cu", _PALLAS + "pallas_intersect.py:97"),
+    "bvh_closest_inst": (_CSRC + "bvh_traverse.cu",
+                         _PALLAS + "pallas_bvh.py:298 (instanced=True, :304, :378)"),
+    "bvh_anyhit_inst": (_CSRC + "bvh_traverse.cu",
+                        _PALLAS + "pallas_bvh.py:747 (instanced=True, :753, :799)"),
 }
 # the main-path runs whose launches each kernel is counted on
+ALL_PATHS = ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh", "big_env", "instanced")
 PATHS_OF = {
-    "bvh_closest": ("mesh_env_bvh",),
-    "bvh_anyhit": ("mesh_env_bvh",),
-    "gather_planes": ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh"),
-    "count_less": ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh"),
+    "bvh_closest": ("mesh_env_bvh", "big_env"),
+    "bvh_anyhit": ("mesh_env_bvh", "big_env"),
+    "gather_planes": ALL_PATHS,
+    "count_less": ALL_PATHS,
     "sweep_closest": ("oracle_mat", "mesh_env_nobvh"),
     "sweep_anyhit": ("oracle_mat", "mesh_env_nobvh"),
+    "bvh_closest_inst": ("instanced",),
+    "bvh_anyhit_inst": ("instanced",),
 }
 
 
@@ -154,16 +202,20 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def host_time_ms(fn) -> float:
-    """One call on the host clock, ended by a synchronise (the plain sweeps
-    take up to seconds a call)."""
+def host_timed(fn):
+    """(result, ms) of one call on the host clock, ended by a synchronise
+    (the plain sweeps take up to seconds a call)."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def host_time_ms(fn) -> float:
+    return host_timed(fn)[1]
 
 
 @contextlib.contextmanager
@@ -302,6 +354,10 @@ def main_path_rays(data, config, cam, seed: int = 0):
                "materials.twosided": (mats[:, MAT_TWOSIDED:MAT_TWOSIDED + 1].contiguous(),
                                       i32(geo.mat_id))}
     counts = {}
+    if config.instanced:
+        tr = data.tris
+        gathers["tris.inst_w2o"] = (tr.inst_w2o, i32(hit.inst))
+        gathers["tris.inst_packed"] = (tr.inst_packed, i32(hit.inst))
     if config.sphere_count:
         sph = data.spheres.attrs
         gathers["spheres.attrs"] = (sph, i32(hit.prim.clamp(max=sph.shape[0] - 1)))
@@ -400,6 +456,87 @@ def check_counts(scene, cases, k4, bound):
     k4.update(bound.fields())
 
 
+def check_traversal(scene, data, config, rays, lanes, out, bounds, plain_subset):
+    """K1 on primary and bounce rays, K2 on shadow (and, at full N, bounce)
+    rays of one scene: exact against the brute sweep on ``lanes``, timed at
+    full N. With ``plain_subset`` the plain versions are timed on the lane
+    subset they are compared on (big_env: the brute sweep over 405k rows at
+    every lane would take minutes), else at full N. Sums go to ``out``."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tris = data.tris
+    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    kw = dict(tcl=config.bvh_tcl, depth=tris.bvh_depth)
+    n = config.width * config.height
+    k1, k2 = out["bvh_closest"], out["bvh_anyhit"]
+
+    def live_of(planes):
+        return int((planes[7] > planes[6]).sum())
+
+    for label in ("primary", "bounce"):
+        full = planes_of(rays[label])
+        t_k, i_k = bt.bvh_closest(*full, *tabs, **kw)
+        sub = planes_of(rays[label], lanes)
+        (t_p, i_p), sub_ms = host_timed(lambda: bt.plain_closest(*sub, tris.packed))
+        t_ks, i_ks = t_k[lanes], i_k[lanes]
+        mism = int((i_ks != i_p).sum())
+        hit = i_p >= 0
+        err = float((t_ks[hit] - t_p[hit]).abs().max()) if bool(hit.any()) else 0.0
+        bit_t = bool(torch.equal(t_ks, t_p))
+        log(f"  K1 {scene} {label}: {int(hit.sum())}/{lanes.numel()} hits, idx mismatches "
+            f"{mism}, t bit-equal {bit_t}, max |dt| {err}")
+        require(mism == 0 and bit_t, f"K1 {scene} {label}: kernel disagrees with the brute sweep")
+        ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *tabs, **kw), reps=5)
+        plain_ms = sub_ms if plain_subset else host_time_ms(
+            lambda: bt.plain_closest(*full, tris.packed))
+        bound, by = bounds["bvh_closest"].add(
+            nbytes(*full, *tabs, t_k, i_k),
+            live_of(full) * 8 * SLAB_FLOPS
+            + int((i_k >= 0).sum()) * config.bvh_tcl * MT_FLOPS_CLOSEST)
+        plain_n = lanes.numel() if plain_subset else n
+        log(f"  K1 {scene} {label}: kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms at "
+            f"N={plain_n}, bound {bound:.4f} ms ({by})")
+        k1.setdefault("calls", {})[f"{scene} {label}"] = {
+            "ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "bound_ms": bound,
+            "bound_by": by, "hits": int(hit.sum()), "mismatches": mism}
+        k1["ms"] += ms
+        k1["plain_ms"] += plain_ms
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        k1["mismatches"] += mism
+        k1["hits"] += int(hit.sum())
+    k1.update(bounds["bvh_closest"].fields())
+
+    for label in (("shadow",) if plain_subset else ("shadow", "bounce")):
+        full = planes_of(rays[label])
+        occ_k = bt.bvh_anyhit(*full, *tabs, **kw)
+        sub = planes_of(rays[label], lanes)
+        occ_p, sub_ms = host_timed(lambda: bt.plain_anyhit(*sub, tris.packed))
+        mism = int((occ_k[lanes] != occ_p).sum())
+        log(f"  K2 {scene} {label}: {int(occ_p.sum())}/{lanes.numel()} occluded, "
+            f"mismatches {mism}")
+        require(mism == 0, f"K2 {scene} {label}: kernel disagrees with the brute sweep")
+        if label == "shadow":
+            ms = cuda_time_ms(lambda: bt.bvh_anyhit(*full, *tabs, **kw), reps=5)
+            plain_ms = sub_ms if plain_subset else host_time_ms(
+                lambda: bt.plain_anyhit(*full, tris.packed))
+            bound, by = bounds["bvh_anyhit"].add(
+                nbytes(*full, *tabs, occ_k),
+                live_of(full) * 8 * SLAB_FLOPS + int(occ_k.sum()) * MT_FLOPS_ANY)
+            plain_n = lanes.numel() if plain_subset else n
+            log(f"  K2 {scene} shadow: kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms "
+                f"at N={plain_n}, bound {bound:.4f} ms ({by})")
+            k2.setdefault("calls", {})[f"{scene} shadow"] = {
+                "ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "bound_ms": bound,
+                "bound_by": by, "occluded": int(occ_p.sum()), "mismatches": mism}
+            k2["ms"] += ms
+            k2["plain_ms"] += plain_ms
+        k2["mismatches"] += mism
+        k2["max_abs_err"] = max(k2["max_abs_err"], float(mism > 0))
+    k2.update(bounds["bvh_anyhit"].fields())
+
+
 def phase_kernels(data, config, cam, results):
     import torch
 
@@ -411,85 +548,24 @@ def phase_kernels(data, config, cam, results):
     rays = main_path_rays(data, config, cam)
     n = config.width * config.height
     lanes = pick_lanes(n, tris.packed.device)
-    out = {}
-
-    def live_of(planes):
-        return int((planes[7] > planes[6]).sum())
-
-    # K1 closest hit: primary + bounce rays
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "mismatches": 0, "hits": 0,
-          "library_ms": None}
-    k1_bound = Bound()
-    for label in ("primary", "bounce"):
-        full = planes_of(rays[label])
-        t_k, i_k = bt.bvh_closest(*full, *tabs, **kw)
-        sub = planes_of(rays[label], lanes)
-        t_p, i_p = bt.plain_closest(*sub, tris.packed)
-        t_ks, i_ks = t_k[lanes], i_k[lanes]
-        mism = int((i_ks != i_p).sum())
-        hit = i_p >= 0
-        err = float((t_ks[hit] - t_p[hit]).abs().max()) if bool(hit.any()) else 0.0
-        bit_t = bool(torch.equal(t_ks, t_p))
-        log(f"  K1 {label}: {int(hit.sum())}/{lanes.numel()} hits, idx mismatches {mism}, "
-            f"t bit-equal {bit_t}, max |dt| {err}")
-        require(mism == 0 and bit_t, f"K1 {label}: kernel disagrees with the brute sweep")
-        ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *tabs, **kw), reps=5)
-        plain_ms = host_time_ms(lambda: bt.plain_closest(*full, tris.packed))
-        bound, by = k1_bound.add(
-            nbytes(*full, *tabs, t_k, i_k),
-            live_of(full) * 8 * SLAB_FLOPS
-            + int((i_k >= 0).sum()) * config.bvh_tcl * MT_FLOPS_CLOSEST)
-        log(f"  K1 {label}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound:.4f} ms ({by}) at N={n}")
-        k1[f"{label}_bound_by"] = by
-        k1[f"{label}_ms"] = ms
-        k1[f"{label}_plain_ms"] = plain_ms
-        k1[f"{label}_bound_ms"] = bound
-        k1["ms"] += ms
-        k1["plain_ms"] += plain_ms
-        k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["mismatches"] += mism
-        k1["hits"] += int(hit.sum())
-    k1.update(k1_bound.fields())
-    out["bvh_closest"] = k1
-
-    # K2 any hit: shadow rays (and bounce rays, whose occlusion = closest hit)
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "mismatches": 0,
-          "library_ms": None}
-    k2_bound = Bound()
-    for label in ("shadow", "bounce"):
-        full = planes_of(rays[label])
-        occ_k = bt.bvh_anyhit(*full, *tabs, **kw)
-        sub = planes_of(rays[label], lanes)
-        occ_p = bt.plain_anyhit(*sub, tris.packed)
-        mism = int((occ_k[lanes] != occ_p).sum())
-        log(f"  K2 {label}: {int(occ_p.sum())}/{lanes.numel()} occluded, mismatches {mism}")
-        require(mism == 0, f"K2 {label}: kernel disagrees with the brute sweep")
-        if label == "shadow":
-            k2["ms"] = cuda_time_ms(lambda: bt.bvh_anyhit(*full, *tabs, **kw), reps=5)
-            k2["plain_ms"] = host_time_ms(lambda: bt.plain_anyhit(*full, tris.packed))
-            bound, by = k2_bound.add(
-                nbytes(*full, *tabs, occ_k),
-                live_of(full) * 8 * SLAB_FLOPS + int(occ_k.sum()) * MT_FLOPS_ANY)
-            log(f"  K2 shadow: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.1f} ms, "
-                f"bound {bound:.4f} ms ({by}) at N={n}")
-        k2["mismatches"] += mism
-        k2["max_abs_err"] = max(k2["max_abs_err"], float(mism > 0))
-    k2.update(k2_bound.fields())
-    out["bvh_anyhit"] = k2
+    out = {name: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "mismatches": 0,
+                  "library_ms": None} for name in ("bvh_closest", "bvh_anyhit")}
+    out["bvh_closest"]["hits"] = 0
+    bounds = {"bvh_closest": Bound(), "bvh_anyhit": Bound()}
+    check_traversal("mesh_env", data, config, rays, lanes, out, bounds, plain_subset=False)
 
     # K3 gather into planes: attrs at the primary hit rows, env column CDF
-    # rows, texel pool (bilinear-quad pool too), all bit-exact; beside each,
-    # the one PyTorch call that computes the same planes
+    # rows, texel pool (bilinear-quad pool too), all bit-exact; K4 on the
+    # env row CDF (flat runs where env rows are black); beside each, the one
+    # PyTorch call that computes the same result
     dev = tris.packed.device
-    g = torch.Generator(device=dev).manual_seed(1)
     _, i_prim = bt.bvh_closest(*planes_of(rays["primary"]), *tabs, **kw)
-    em, tex = data.emitters, data.textures
+    env_gathers, env_counts = env_cases(data, n, seed=1)
+    tex = data.textures
+    g = torch.Generator(device=dev).manual_seed(4)
     cases = {
         "attrs": (tris.attrs, i_prim),
-        "env_col_cdf": (em.env_col_cdf, torch.randint(
-            -3, em.env_col_cdf.shape[0] + 3, (n,), generator=g, device=dev,
-            dtype=torch.int32)),
+        **env_gathers,
         "pool": (tex.pool, torch.randint(0, tex.pool.shape[0], (n,), generator=g,
                                          device=dev, dtype=torch.int32)),
         "pool_bi": (tex.pool_bi, torch.randint(0, tex.pool_bi.shape[0], (n,),
@@ -500,27 +576,27 @@ def phase_kernels(data, config, cam, results):
     k3_bound = Bound()
     check_gathers("mesh_env", cases, k3, k3_bound)
     out["gather_planes"] = k3
-
-    # K4 count below the env row CDF (flat runs where env rows are black)
-    cdf = em.env_row_cdf
-    q = torch.rand(n, generator=g, device=dev)
-    q[:cdf.shape[0]] = cdf  # exact table values: side='left' semantics
     k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
     k4_bound = Bound()
-    check_counts("mesh_env", {"env_row_cdf": (cdf, q)}, k4, k4_bound)
+    check_counts("mesh_env", env_counts, k4, k4_bound)
     out["count_less"] = k4
     results["kernels"] = out
-    return {"gather_planes": k3_bound, "count_less": k4_bound}
+    return {**bounds, "gather_planes": k3_bound, "count_less": k4_bound}
 
 
-def phase_frame(data, config, cam, results):
+BVH_PATH = ("bvh_closest", "bvh_anyhit", "gather_planes", "count_less")
+
+
+def phase_frame(data, config, cam, results, label="mesh_env"):
+    """render_frame at the tables' film: 1 warm-up + 2 timed frames, the
+    launch counts set to 0 just before and read just after."""
     import torch
 
     from pupiloptixlab_tpu_torch import kernels
     from pupiloptixlab_tpu_torch.render.integrator import render_frame
 
     n = config.width * config.height
-    accum = torch.zeros((n, 3), dtype=torch.float32, device="cuda")
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
     iters = 2
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -540,14 +616,13 @@ def phase_frame(data, config, cam, results):
     finite = bool(torch.isfinite(frame).all())
     mean = float(frame.mean())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  1920x1080 depth {config.max_depth}: warm-up {warm_ms:.1f} ms, "
+    log(f"  {label} {config.width}x{config.height} depth {config.max_depth}: warm-up {warm_ms:.1f} ms, "
         f"{dt * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} Mray/s, mean {mean:.5f}, "
         f"peak {peak_gb:.2f} GB, launches over {1 + iters} frames {launches}")
-    require(finite and mean > 0.0, "frame is not finite and non-zero")
-    path = ("bvh_closest", "bvh_anyhit", "gather_planes", "count_less")
-    require(all(launches[k] > 0 for k in path),
-            f"a kernel of the BVH path was not launched: {launches}")
-    results["frame"] = {"ms_per_frame": dt * 1e3, "mrays_per_s": rays / dt / 1e6,
+    require(finite and mean > 0.0, f"{label}: frame is not finite and non-zero")
+    require(all(launches[k] > 0 for k in BVH_PATH),
+            f"{label}: a kernel of the BVH path was not launched: {launches}")
+    results.setdefault("frames", {})[label] = {"ms_per_frame": dt * 1e3, "mrays_per_s": rays / dt / 1e6,
                         "warmup_ms": warm_ms, "mean": mean, "peak_gb": peak_gb,
                         "rays_per_frame": rays, "frames": 1 + iters,
                         "launches": launches}
@@ -683,7 +758,7 @@ def phase_sweep(mesh_bvh, bounds, results):
     details: dict = {}
 
     # (a) oracle_mat's own table: one 64-row chunk, no box read
-    data, config, cam = load_tables(ORACLE_MAT, 1920, 1080, "cuda")
+    data, config, cam = load_tables(ORACLE_MAT, *FILM, DEV)
     require(config.bvh_nodes == 0 and data.tris.packed.shape[0] == 64,
             "oracle_mat must flatten to one 64-row chunk without a BVH")
     n = config.width * config.height
@@ -711,7 +786,7 @@ def phase_sweep(mesh_bvh, bounds, results):
     del data, rays_mat
 
     # (b) mesh_env flattened under PUPIL_NO_BVH: 321 chunks, 11 super-boxes
-    data, config, cam = load_tables(MESH_ENV, 1920, 1080, "cuda", no_bvh=True)
+    data, config, cam = load_tables(MESH_ENV, *FILM, DEV, no_bvh=True)
     tris = data.tris
     require(config.bvh_nodes == 0 and tris.chunk_boxes.shape[0] == 321,
             f"mesh_env under PUPIL_NO_BVH: {config.bvh_nodes} nodes, "
@@ -746,6 +821,7 @@ def phase_sweep(mesh_bvh, bounds, results):
     results["kernels"]["sweep_closest"] = k5
     results["kernels"]["sweep_anyhit"] = k6
     results["sweep"] = details
+    return bounds
 
 
 SYSTEM_PATH = ("sweep_closest", "sweep_anyhit", "gather_planes", "count_less")
@@ -764,12 +840,12 @@ def phase_system(label, xml, warm, iters, no_bvh, tmp, results):
     system.add_pass(pt)
     t0 = time.perf_counter()
     with pupil_no_bvh(no_bvh):
-        require(system.set_scene(scene_copy(xml, 1920, 1080, tmp)),
+        require(system.set_scene(scene_copy(xml, *FILM, tmp)),
                 f"{label}: set_scene failed")
     load_s = time.perf_counter() - t0
     config = pt._config
     require(str(system.device).startswith("cuda") and config.bvh_nodes == 0
-            and (config.width, config.height, config.max_depth) == (1920, 1080, 4),
+            and (config.width, config.height, config.max_depth) == (*FILM, 4),
             f"{label}: expected the chunk-sweep route at 1920x1080 depth 4 on the card")
     n = config.width * config.height
     torch.cuda.synchronize()
@@ -853,14 +929,14 @@ def phase_parity(results):
         return {"rel_mse": 0.0, "frac_within_1e-4": 1.0, "normal_max": 0.0,
                 "albedo_max": 0.0}
 
-    card, cpu = frames_of("cuda"), frames_of("cpu")
+    card, cpu = frames_of(DEV), frames_of("cpu")
     worst = new_worst()
     for i, (g, c) in enumerate(zip(card, cpu)):
         compare_frames(f"mesh_env 128x8 seed {i}", g, c, worst)
     results["parity"] = worst
 
     # the BVH route against the brute chunk sweep at equal seeds, both on the card
-    sweep = frames_of("cuda", no_bvh=True)
+    sweep = frames_of(DEV, no_bvh=True)
     rels = []
     for i, (g, c) in enumerate(zip(card, sweep)):
         a, b = g["frame"], c["frame"]
@@ -874,7 +950,7 @@ def phase_parity(results):
     # oracle_mat at its own 64x64 film through System, card against CPU
     names = ("pt frame", "pt albedo", "pt normal", "pt test")
     seqs = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (DEV, "cpu"):
         system = System(device=dev)
         system.add_pass(PTPass())
         require(system.set_scene(ORACLE_MAT), "oracle_mat: set_scene failed")
@@ -886,7 +962,7 @@ def phase_parity(results):
         system.destroy()
         seqs[dev] = seq
     worst = new_worst()
-    for i, (g, c) in enumerate(zip(seqs["cuda"], seqs["cpu"])):
+    for i, (g, c) in enumerate(zip(seqs[DEV], seqs["cpu"])):
         compare_frames(f"oracle_mat 64x64 through System, seed {i}", g, c, worst)
     results["parity_system_oracle_mat"] = worst
 
@@ -903,7 +979,7 @@ def phase_oracle(results):
               "oracle_mat": (ORACLE_MAT, 0.01, 4e-3, 1e-3)}
     out = {}
     for name, (xml, ratio_tol, mse_tol, box_tol) in limits.items():
-        data, config, cam = load_tables(xml, 64, 64, "cuda")
+        data, config, cam = load_tables(xml, 64, 64, DEV)
         t0 = time.perf_counter()
         img = render(data, cam, config, spp=spp).cpu().numpy()
         torch.cuda.synchronize()
@@ -926,6 +1002,402 @@ def phase_oracle(results):
         out[name] = {"mean_ratio": mean_ratio, "rel_mse": rel_mse, "box_rel_mse": box_rel,
                      "spp": spp, "seconds": secs}
     results["oracle"] = out
+
+
+def env_cases(data, n, seed):
+    """K3 on the env column CDF at seeded rows (some out of range) and K4 on
+    the env row CDF at seeded draws with the table's own values among them
+    (side='left' semantics)."""
+    import torch
+
+    em = data.emitters
+    dev = em.env_col_cdf.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gathers = {"env_col_cdf": (em.env_col_cdf, torch.randint(
+        -3, em.env_col_cdf.shape[0] + 3, (n,), generator=g, device=dev, dtype=torch.int32))}
+    cdf = em.env_row_cdf
+    q = torch.rand(n, generator=g, device=dev)
+    q[:cdf.shape[0]] = cdf
+    return gathers, {"env_row_cdf": (cdf, q)}
+
+
+def table_bytes(tris) -> dict:
+    return {k: nbytes(getattr(tris, k)) for k in
+            ("packed", "attrs", "bvh_boxes", "bvh_child", "leaf_start", "inst_w2o")}
+
+
+def phase_big_env(tmp, bounds, results):
+    """Phase 10: big_env at 1920x1080 on K1/K2 at leaf size 32, and its
+    48x48 oracle gate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
+    from pupiloptixlab_tpu_torch.render.integrator import render
+    from pupiloptixlab_tpu_torch.scene import load_scene
+    from pupiloptixlab_tpu_torch.utils.image import read_exr
+
+    out_dir = tmp / "big_env"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_big_scene.py"), str(out_dir),
+                    str(BIG_GRID)], check=True, capture_output=True, timeout=600)
+    gen_s = time.perf_counter() - t0
+    scene = load_scene(scene_copy(out_dir / "big_env.xml", *FILM, out_dir))
+    t0 = time.perf_counter()
+    data, config = flatten_scene(scene, device=DEV)
+    flatten_s = time.perf_counter() - t0
+    cam = camera_block_from_scene(scene, device=DEV)
+    tris = data.tris
+    tb = table_bytes(tris)
+    log(f"  big_env: generated in {gen_s:.1f} s, loaded and flattened in {flatten_s:.1f} s: "
+        f"{config.tri_count} tris in {tris.packed.shape[0]} rows, tcl {config.bvh_tcl}, "
+        f"{config.bvh_nodes} nodes, depth {tris.bvh_depth} (stack {7 * tris.bvh_depth + 1} "
+        f"of {bt.STACK_SIZE}), table bytes {tb}")
+    require(config.bvh_tcl == 32 and not config.instanced and config.bvh_nodes > 0
+            and bt.stack_fits(tris.bvh_depth),
+            "big_env must take the BVH route at leaf size 32 within the kernels' stack")
+    rec = {"tri_count": config.tri_count, "rows": tris.packed.shape[0],
+           "bvh_tcl": config.bvh_tcl, "bvh_nodes": config.bvh_nodes,
+           "bvh_depth": tris.bvh_depth, "table_bytes": tb, "generate_s": gen_s,
+           "flatten_s": flatten_s}
+    n = config.width * config.height
+    rays = main_path_rays(data, config, cam)
+    lanes = pick_lanes(n, tris.packed.device)
+    ks = results["kernels"]
+    check_traversal("big_env", data, config, rays, lanes, ks, bounds, plain_subset=True)
+    gathers, counts = env_cases(data, n, seed=2)
+    check_gathers("big_env", {**rays["gathers"], **gathers}, ks["gather_planes"],
+                  bounds["gather_planes"])
+    check_counts("big_env", {**rays["counts"], **counts}, ks["count_less"],
+                 bounds["count_less"])
+    del rays
+    launches = phase_frame(data, config, cam, results, label="big_env")
+
+    # the reference's oracle gate at 48x48, 128 spp, on the same tables
+    scene.sensor.film.w = scene.sensor.film.h = 48
+    cam48 = camera_block_from_scene(scene, device=DEV)
+    cfg48 = dataclasses.replace(config, width=48, height=48)
+    t0 = time.perf_counter()
+    img = render(data, cam48, cfg48, spp=128).cpu().numpy()
+    secs = time.perf_counter() - t0
+    oracle = read_exr(ORACLE_EXR["big_env"])[::-1][..., :3]
+    mean_ratio = float(img.mean() / oracle.mean())
+
+    def box(a):
+        return a.reshape(12, 4, 12, 4, 3).mean((1, 3))
+
+    box_rel = float(np.mean((box(img) - box(oracle)) ** 2) / np.mean(box(oracle) ** 2))
+    rel_mse = float(np.mean((img - oracle) ** 2) / np.mean(oracle ** 2))
+    log(f"  big_env 48x48 128 spp in {secs:.1f} s: mean ratio {mean_ratio:.5f}, rel MSE "
+        f"{rel_mse:.5e}, 4x4-box rel MSE {box_rel:.5e}")
+    require(np.isfinite(img).all() and abs(mean_ratio - 1.0) < 0.03 and box_rel < 2e-2,
+            "big_env oracle gate failed (mean ratio within 0.03, box rel MSE < 2e-2)")
+    rec["oracle"] = {"mean_ratio": mean_ratio, "rel_mse": rel_mse, "box_rel_mse": box_rel,
+                     "spp": 128, "seconds": secs}
+    results["big_env"] = rec
+    del data
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_inst_traversal(data, config, rays, lanes, out, bounds):
+    """K7 on primary and bounce rays, K8 on shadow rays: exact against the
+    plain leaf scans on ``lanes`` (timed there), timed at full N."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    tabs = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes, tr.leaf_start, tr.leaf_inst,
+            tr.inst_w2o)
+    plain_tabs = (tr.packed, tr.leaf_start, tr.leaf_inst, tr.inst_w2o)
+    kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+    n = config.width * config.height
+    leaf_flops = 18 + config.bvh_tcl * MT_FLOPS_CLOSEST  # the ray transform + one leaf
+    k7, k8 = out["bvh_closest_inst"], out["bvh_anyhit_inst"]
+    for label in ("primary", "bounce"):
+        full = planes_of(rays[label])
+        t_k, i_k, l_k = bt.bvh_closest_inst(*full, *tabs, **kw)
+        sub = planes_of(rays[label], lanes)
+        (t_p, i_p, l_p), plain_ms = host_timed(
+            lambda: bt.plain_closest_inst(*sub, *plain_tabs, tcl=config.bvh_tcl))
+        t_ks, i_ks, l_ks = t_k[lanes], i_k[lanes], l_k[lanes]
+        mism = int(((i_ks != i_p) | (l_ks != l_p)).sum())
+        hit = i_p >= 0
+        err = float((t_ks[hit] - t_p[hit]).abs().max()) if bool(hit.any()) else 0.0
+        bit_t = bool(torch.equal(t_ks, t_p))
+        ms = cuda_time_ms(lambda: bt.bvh_closest_inst(*full, *tabs, **kw), reps=5)
+        live = int((full[7] > full[6]).sum())
+        bound, by = bounds["bvh_closest_inst"].add(
+            nbytes(*full, *tabs, t_k, i_k, l_k),
+            live * 8 * SLAB_FLOPS + int((i_k >= 0).sum()) * leaf_flops)
+        log(f"  K7 {label}: {int(hit.sum())}/{lanes.numel()} hits, (row, leaf) mismatches "
+            f"{mism}, t bit-equal {bit_t}; kernel {ms:.3f} ms at N={n}, plain "
+            f"{plain_ms:.1f} ms at N={lanes.numel()}, bound {bound:.4f} ms ({by})")
+        require(mism == 0 and bit_t, f"K7 {label}: kernel disagrees with the plain leaf scan")
+        k7.setdefault("calls", {})[f"instanced {label}"] = {
+            "ms": ms, "plain_ms": plain_ms, "plain_n": lanes.numel(), "bound_ms": bound,
+            "bound_by": by, "hits": int(hit.sum()), "mismatches": mism}
+        k7["ms"] += ms
+        k7["plain_ms"] += plain_ms
+        k7["max_abs_err"] = max(k7["max_abs_err"], err)
+        k7["mismatches"] += mism
+    k7.update(bounds["bvh_closest_inst"].fields())
+    full = planes_of(rays["shadow"])
+    occ_k = bt.bvh_anyhit_inst(*full, *tabs, **kw)
+    occ_p, plain_ms = host_timed(lambda: bt.plain_anyhit_inst(
+        *planes_of(rays["shadow"], lanes), *plain_tabs, tcl=config.bvh_tcl))
+    mism = int((occ_k[lanes] != occ_p).sum())
+    ms = cuda_time_ms(lambda: bt.bvh_anyhit_inst(*full, *tabs, **kw), reps=5)
+    live = int((full[7] > full[6]).sum())
+    bound, by = bounds["bvh_anyhit_inst"].add(
+        nbytes(*full, *tabs, occ_k),
+        live * 8 * SLAB_FLOPS + int(occ_k.sum()) * (18 + MT_FLOPS_ANY))
+    log(f"  K8 shadow: {int(occ_p.sum())}/{lanes.numel()} occluded, mismatches {mism}; "
+        f"kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms at N={lanes.numel()}, "
+        f"bound {bound:.4f} ms ({by})")
+    require(mism == 0, "K8 shadow: kernel disagrees with the plain leaf scan")
+    k8.setdefault("calls", {})["instanced shadow"] = {
+        "ms": ms, "plain_ms": plain_ms, "plain_n": lanes.numel(), "bound_ms": bound,
+        "bound_by": by, "occluded": int(occ_p.sum()), "mismatches": mism}
+    k8["ms"] += ms
+    k8["plain_ms"] += plain_ms
+    k8["mismatches"] += mism
+    k8["max_abs_err"] = max(k8["max_abs_err"], float(mism > 0))
+    k8.update(bounds["bvh_anyhit_inst"].fields())
+
+
+INST_PATH = ("bvh_closest_inst", "bvh_anyhit_inst", "gather_planes", "count_less")
+
+
+def phase_instanced(tmp, bounds, results):
+    """Phase 11: the instanced scene through System + PTPass at 1920x1080,
+    K7/K8 and K3/K4 at its shapes, against its baked tables and the CPU."""
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.flatten import flatten_scene
+    from pupiloptixlab_tpu_torch.passes import PTPass
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+    from pupiloptixlab_tpu_torch.scene.instanced_grid import write_instanced_scene
+    from pupiloptixlab_tpu_torch.system import System
+
+    xml = write_instanced_scene(tmp / "instanced", SKY, INST_N, INST_GRID, *FILM, max_depth=4)
+    system = System(device=DEV)
+    pt = PTPass()
+    system.add_pass(pt)
+    t0 = time.perf_counter()
+    require(system.set_scene(xml), "instanced: set_scene failed")
+    load_s = time.perf_counter() - t0
+    config = pt._config
+    data, _ = system.world.get_scene_data()
+    cam = system.world.get_camera_block()
+    tr = data.tris
+    tb = table_bytes(tr)
+    log(f"  instanced: set_scene {load_s:.2f} s: {tr.packed.shape[0]} unique rows, "
+        f"{tr.leaf_start.shape[0]} world leaves of {config.bvh_tcl} rows, "
+        f"{tr.inst_w2o.shape[0]} instances, {config.bvh_nodes} nodes, depth {tr.bvh_depth}, "
+        f"table bytes {tb}")
+    require(config.instanced and type(system.world._refit).__name__ == "InstRefitData"
+            and (config.width, config.height, config.max_depth) == (*FILM, 4),
+            "instanced: expected instanced tables with their refit records at depth 4")
+    n = config.width * config.height
+    iters, warm = 2, 1
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system.run(max_frames=warm)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    system.run(max_frames=iters)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    launches = dict(kernels.LAUNCHES)
+    frame = system.buffers["pt frame"].array
+    mean = float(frame.mean())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rays_n = n * (1 + 2 * (config.max_depth - 1))
+    log(f"  instanced System: warm-up {warm_ms:.1f} ms, {dt * 1e3:.2f} ms/frame "
+        f"({1e3 / (dt * 1e3):.2f} frames/s), {rays_n / dt / 1e6:.2f} Mray/s, mean {mean:.5f}, "
+        f"peak {peak_gb:.2f} GB, launches over {warm + iters} frames {launches}")
+    require(bool(torch.isfinite(frame).all()) and mean > 0.0, "instanced: frame is not finite")
+    require(all(launches[k] > 0 for k in INST_PATH)
+            and all(launches[k] == 0 for k in ("bvh_closest", "bvh_anyhit", "sweep_closest",
+                                                "sweep_anyhit")),
+            f"instanced: the path must launch K7, K8, K3, K4 and no other traversal: {launches}")
+    rec = {"set_scene_s": load_s, "ms_per_frame": dt * 1e3, "frames_per_s": 1.0 / dt,
+           "mrays_per_s": rays_n / dt / 1e6, "warmup_ms": warm_ms, "mean": mean,
+           "peak_gb": peak_gb, "frames": warm + iters, "launches": launches,
+           "unique_rows": tr.packed.shape[0], "world_leaves": tr.leaf_start.shape[0],
+           "instances": tr.inst_w2o.shape[0], "bvh_nodes": config.bvh_nodes,
+           "bvh_depth": tr.bvh_depth, "bvh_tcl": config.bvh_tcl, "table_bytes": tb}
+
+    rays = main_path_rays(data, config, cam)
+    lanes = pick_lanes(n, tr.packed.device)
+    ks = results["kernels"]
+    check_inst_traversal(data, config, rays, lanes, ks, bounds)
+    gathers, counts = env_cases(data, n, seed=3)
+    check_gathers("instanced", {**rays["gathers"], **gathers}, ks["gather_planes"],
+                  bounds["gather_planes"])
+    check_counts("instanced", {**rays["counts"], **counts}, ks["count_less"],
+                 bounds["count_less"])
+    del rays
+
+    # the same scene's baked tables on K1/K2 at equal seeds
+    t0 = time.perf_counter()
+    baked, bconfig = flatten_scene(system.world.scene, allow_instanced=False, device=DEV)
+    baked_s = time.perf_counter() - t0
+    require(not bconfig.instanced and bconfig.max_depth == config.max_depth,
+            "the baked twin must not be instanced")
+    frames = {}
+    for label, d, c in (("instanced", data, config), ("baked", baked, bconfig)):
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+        _, bufs = render_frame(d, cam, 0, 0, accum, c)
+        frames[label] = bufs["frame"].cpu().numpy()
+    diff = np.abs(frames["instanced"] - frames["baked"]).max(axis=-1)
+    q995 = float(np.quantile(diff, 0.995))
+    ratio = float(frames["instanced"].mean() / frames["baked"].mean())
+    log(f"  instanced vs baked ({bconfig.tri_count} rows flattened in {baked_s:.1f} s), "
+        f"seed 0 at 1920x1080: 99.5% quantile of |diff| {q995:.3e}, mean ratio {ratio:.6f}")
+    require(q995 < 2e-3 and abs(ratio - 1.0) < 2e-3,
+            "instanced and baked frames disagree (99.5% within 2e-3, mean ratio within 2e-3)")
+    rec["vs_baked"] = {"baked_rows": bconfig.tri_count, "baked_flatten_s": baked_s,
+                       "q995_abs_diff": q995, "mean_ratio": ratio}
+    del baked, frames
+    system.destroy()
+    torch.cuda.empty_cache()
+
+    # card against CPU at a small film of the same scene
+    small = write_instanced_scene(tmp / "instanced_small", SKY, INST_N, INST_GRID, 32, 18,
+                                  max_depth=4)
+    seqs = {}
+    for dev in (DEV, "cpu"):
+        d, c, cm = load_tables(small, 32, 18, dev)
+        m = c.width * c.height
+        accum = torch.zeros((m, 3), dtype=torch.float32, device=dev)
+        seqs[dev] = []
+        for i in range(2):
+            _, bufs = render_frame(d, cm, i, i, accum, c)
+            seqs[dev].append({k: v.cpu().numpy().copy() for k, v in bufs.items()})
+    worst = {"rel_mse": 0.0, "frac_within_1e-4": 1.0, "normal_max": 0.0, "albedo_max": 0.0}
+    for i, (g, c) in enumerate(zip(seqs[DEV], seqs["cpu"])):
+        compare_frames(f"instanced 32x18 seed {i}", g, c, worst)
+    rec["parity"] = worst
+    results["instanced"] = rec
+    return launches, xml
+
+
+def _leaf_boxes(tris) -> dict:
+    """{(row start, instance): box} of every world leaf of an instanced tree."""
+    child = tris.bvh_child.cpu().numpy()
+    boxes = tris.bvh_boxes.cpu().numpy()
+    start, inst = tris.leaf_start.cpu().numpy(), tris.leaf_inst.cpu().numpy()
+    return {(int(start[-c - 1]), int(inst[-c - 1])): boxes[slot, 0:6]
+            for slot, c in enumerate(child) if c < 0}
+
+
+def phase_refit(inst_xml, results):
+    """Phase 12: an edit through World.render_objects refits on the card
+    without a flatten, and gives a fresh flatten's tables on live rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch.flatten import flatten_scene
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+    from pupiloptixlab_tpu_torch.scene import load_scene
+    from pupiloptixlab_tpu_torch.utils.math import Transform
+    from pupiloptixlab_tpu_torch.world import world as world_mod
+
+    out = {}
+    real = world_mod.flatten_scene
+    for label, xml, (moved, hidden) in (("instanced", inst_xml, (3, 5)),
+                                        ("mesh_env", MESH_ENV, (0, 1))):
+        calls = []
+
+        def counting(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+
+        world_mod.flatten_scene = counting
+        try:
+            w = world_mod.World(device=DEV)
+            w.set_scene(load_scene(xml))
+            t0 = time.perf_counter()
+            data0, config0 = w.get_scene_data()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            ros = w.render_objects
+            ros[moved].apply_transform(Transform().translate(0.4, 0.25, -0.3))
+            ros[hidden].set_visible(False)
+            t0 = time.perf_counter()
+            data1, config1 = w.get_scene_data()
+            torch.cuda.synchronize()
+            refit_s = time.perf_counter() - t0
+        finally:
+            world_mod.flatten_scene = real
+        t0 = time.perf_counter()
+        fresh, fconfig, frec = flatten_scene(w.scene, return_refit=True, device=DEV)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        # the refit keeps its tree; a fresh flatten builds one of its own
+        same_config = dataclasses.replace(fconfig, bvh_nodes=config0.bvh_nodes) == config0
+        require(len(calls) == 1 and config1 == config0 and same_config,
+                f"{label}: the edit must refit, not flatten ({len(calls)} flatten calls), "
+                f"keeping the configuration: {config1} / {fconfig}")
+        kind = type(w._refit).__name__
+        if config0.instanced:
+            require(kind == "InstRefitData" and data1.tris.packed is data0.tris.packed,
+                    "instanced: the refit must keep the object-space tables")
+            same = all(torch.equal(getattr(data1.tris, f), getattr(fresh.tris, f))
+                       for f in ("packed", "attrs", "inst_w2o", "inst_packed"))
+            # world leaves by (row start, instance): the refit keeps its tree,
+            # the fresh flatten builds a new one
+            a, b = _leaf_boxes(data1.tris), _leaf_boxes(fresh.tris)
+            live = [k for k in a if a[k][0] < 1e30]
+            la = np.stack([a[k] for k in live])
+            lb = np.stack([b[k] for k in live])
+            ulp = float(np.max(np.abs(la - lb) / np.spacing(np.abs(lb))))
+            dead = sum(1 for k in a if k[1] == hidden)  # mesh instances = scene instances here
+            ok = same and a.keys() == b.keys() and ulp <= 1.0 and len(live) == len(a) - dead
+            err = {"tables_equal": same, "live_leaves": len(live), "leaf_box_max_ulp": ulp}
+        else:
+            require(kind == "RefitData", f"{label}: expected baked refit records")
+
+            def by_key(d, rec):
+                key = rec.tri_inst.astype(np.int64) * (1 << 32) + rec.u_row
+                keep = rec.tri_valid & (rec.tri_inst != hidden)
+                order = np.argsort(key[keep])
+                return (d.tris.packed.cpu().numpy()[keep][order],
+                        d.tris.attrs.cpu().numpy()[keep][order])
+
+            (gp, ga), (fp, fa) = by_key(data1, w._refit), by_key(fresh, frec)
+            dp = float(np.abs(gp[:, 0:9] - fp[:, 0:9]).max())
+            dn = float(np.abs(ga[:, 0:9] - fa[:, 0:9]).max())
+            ok = gp.shape == fp.shape and dp <= 2e-6 and dn <= 1e-6 and np.array_equal(
+                ga[:, 9:17], fa[:, 9:17])
+            err = {"live_rows": int(gp.shape[0]), "max_abs_p0_e1_e2": dp, "max_abs_normal": dn}
+        cam = w.get_camera_block()
+        m = config1.width * config1.height
+        accum = torch.zeros((m, 3), dtype=torch.float32, device=DEV)
+        _, bufs = render_frame(data1, cam, 0, 0, accum, config1)
+        finite = bool(torch.isfinite(bufs["frame"]).all())
+        log(f"  refit {label} ({kind}): first flatten {load_s:.3f} s, refit {refit_s * 1e3:.2f} "
+            f"ms, fresh flatten of the edited scene {fresh_s:.3f} s, flatten calls "
+            f"{len(calls)}, tree nodes kept {config1.bvh_nodes} (fresh {fconfig.bvh_nodes}), "
+            f"against the fresh flatten {err}, frame after the edit finite {finite}")
+        require(ok and finite, f"refit {label}: tables disagree with a fresh flatten")
+        out[label] = {"records": kind, "flatten_s": load_s, "refit_ms": refit_s * 1e3,
+                      "fresh_flatten_s": fresh_s, "bvh_nodes": config1.bvh_nodes,
+                      "fresh_bvh_nodes": fconfig.bvh_nodes, **err}
+    results["refit"] = out
 
 
 def main() -> int:
@@ -964,7 +1436,7 @@ def main() -> int:
     log(f"[build] host BVH build and OBJ parser: {results['host_runtime']}")
 
     t0 = time.perf_counter()
-    data, config, cam = load_tables(MESH_ENV, 1920, 1080, "cuda")
+    data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
     log(f"[flatten] mesh_env on cuda in {time.perf_counter() - t0:.2f} s: "
         f"{config.tri_count} tris, {config.bvh_nodes} nodes, tcl {config.bvh_tcl}, "
         f"depth {data.tris.bvh_depth}")
@@ -974,7 +1446,7 @@ def main() -> int:
         log("[frame] mesh_env BVH route, render_frame, 1 warm-up + 2 timed")
         launches = phase_frame(data, config, cam, results)
         log("[sweep] K3, K4 on oracle_mat's tables; K5 and K6, each against its plain version")
-        phase_sweep((data, config), bounds, results)
+        bounds = phase_sweep((data, config), bounds, results)
     del data
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -985,6 +1457,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         runs["mesh_env_nobvh"] = phase_system("mesh_env_nobvh", MESH_ENV, 1, 2, True,
                                               Path(tmp), results)
+        torch.cuda.empty_cache()
+        bounds["bvh_closest_inst"], bounds["bvh_anyhit_inst"] = Bound(), Bound()
+        for name in ("bvh_closest_inst", "bvh_anyhit_inst"):
+            results["kernels"][name] = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+                                        "mismatches": 0, "library_ms": None}
+        with torch.inference_mode():
+            log("[big_env] 405k triangles on K1/K2 at leaf size 32, 1920x1080")
+            runs["big_env"] = phase_big_env(Path(tmp), bounds, results)
+            log("[instanced] 64 instances through System + PTPass on K7/K8, 1920x1080")
+            runs["instanced"], inst_xml = phase_instanced(Path(tmp), bounds, results)
+        torch.cuda.empty_cache()
+        log("[refit] instance edits through World on the card")
+        phase_refit(inst_xml, results)
     torch.cuda.empty_cache()
     log("[parity] card vs CPU, BVH vs chunk sweep")
     phase_parity(results)
@@ -1001,9 +1486,17 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
 
-    # each kernel's launches over the runs of the main paths it is on (each
-    # run had the counts set to 0 just before and read just after): the
-    # paths whose shapes its ms, plain_ms and bound_ms were taken at
+    print(json.dumps({"kernels": kernels_line(results, runs)}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernels_line(results, runs) -> list:
+    """Each kernel's launches over the runs of the main paths it is on (each
+    run had the counts set to 0 just before and read just after): the paths
+    whose shapes its ms, plain_ms and bound_ms were taken at."""
     line = []
     for name, (source, replaces) in KERNEL_META.items():
         k = results["kernels"][name]
@@ -1017,11 +1510,7 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
-    print(json.dumps({"kernels": line}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+    return line
 
 
 if __name__ == "__main__":

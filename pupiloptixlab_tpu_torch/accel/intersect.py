@@ -2,11 +2,14 @@
 
 Mirrors pupiloptixlab_tpu/accel/intersect.py. Triangle scenes with a BVH
 (``config.bvh_nodes > 0``) go through ``bvh_closest`` / ``bvh_anyhit``
-(accel/bvh_traverse.py); scenes without one (``bvh_nodes == 0``: 1024
-triangles or fewer, or ``PUPIL_NO_BVH`` at flatten time) take the
-reference's chunk sweep through ``sweep_closest`` / ``sweep_anyhit``
-(accel/sweep.py). Each wrapper launches its CUDA kernel for tables on the
-card and runs the plain brute-force sweep for tables on the CPU.
+(accel/bvh_traverse.py), or through ``bvh_closest_inst`` /
+``bvh_anyhit_inst`` when the tables are instanced (``config.instanced``;
+the hit's instance is ``leaf_inst[leaf]``, 0 where nothing is hit).
+Scenes without a BVH (``bvh_nodes == 0``: 1024 triangles or fewer, or
+``PUPIL_NO_BVH`` at flatten time) take the reference's chunk sweep
+through ``sweep_closest`` / ``sweep_anyhit`` (accel/sweep.py). Each
+wrapper launches its CUDA kernel for tables on the card and runs its
+plain version for tables on the CPU.
 
 The reference's ray sort (``_sorted_ray_sweep``, ``origin_sort_prim``)
 only permutes lanes for TPU tile coherence and is left out: results are
@@ -19,7 +22,12 @@ from dataclasses import dataclass
 
 import torch
 
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_anyhit, bvh_closest
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import (
+    bvh_anyhit,
+    bvh_anyhit_inst,
+    bvh_closest,
+    bvh_closest_inst,
+)
 from pupiloptixlab_tpu_torch.accel.sweep import sweep_anyhit, sweep_closest
 from pupiloptixlab_tpu_torch.flatten.types import (
     CRV_P0,
@@ -40,7 +48,7 @@ class Hit:
     t: torch.Tensor     # (N,) hit distance; MAX_DISTANCE on miss
     prim: torch.Tensor  # (N,) i32 primitive index (tri row or sphere)
     kind: torch.Tensor  # (N,) i32: 0 tri, 1 sphere, 2 curve, -1 miss
-    inst: torch.Tensor  # (N,) i32 instance id (zeros: instancing not ported)
+    inst: torch.Tensor  # (N,) i32 instance id (instanced scenes; 0 elsewhere)
 
     @property
     def hit_mask(self) -> torch.Tensor:
@@ -62,9 +70,23 @@ def _mt_planes(ro: Vec3, rd: Vec3, p0: Vec3, e1: Vec3, e2: Vec3):
 
 def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
                  config: RenderConfig):
-    """(t, prim, kind) of the closest triangle hit."""
+    """(t, prim, kind, inst) of the closest triangle hit."""
     tris = scene.tris
     planes = [p.contiguous() for p in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tmin, tmax)]
+    if config.instanced:
+        t, idx, leaf = bvh_closest_inst(
+            *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
+            tris.leaf_start, tris.leaf_inst, tris.inst_w2o,
+            tcl=config.bvh_tcl, depth=tris.bvh_depth,
+        )
+        inst = tris.leaf_inst[torch.clamp(leaf, min=0).long()]
+        hit = idx >= 0
+        return (
+            torch.where(hit, t, MAX_DISTANCE),
+            torch.where(hit, idx, 0),
+            torch.where(hit, 0, -1).to(torch.int32),
+            torch.where(hit, inst, 0),
+        )
     if config.bvh_nodes > 0:
         t, idx = bvh_closest(
             *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
@@ -78,6 +100,7 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
         torch.where(hit, t, MAX_DISTANCE),
         torch.where(hit, idx, 0),
         torch.where(hit, 0, -1).to(torch.int32),
+        torch.zeros_like(idx),
     )
 
 
@@ -188,8 +211,6 @@ def intersect_closest(
     """``mask``: lanes whose result the caller will use. Culled lanes get
     an empty ray interval (tmax = -1): a guaranteed miss, and the traversal
     kernel returns for them at once."""
-    if config.instanced:
-        raise NotImplementedError("instanced traversal: ROADMAP A.8 (instancing)")
     if mask is not None:
         tmax = torch.where(mask, tmax, -1.0)
     n = ro.x.shape[0]
@@ -197,8 +218,10 @@ def intersect_closest(
     best_t = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
     best_prim = torch.zeros(n, dtype=torch.int32, device=dev)
     best_kind = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.zeros(n, dtype=torch.int32, device=dev)
     if config.tri_count > 0:
-        best_t, best_prim, best_kind = _tri_closest(ro, rd, tmin, tmax, scene, config)
+        best_t, best_prim, best_kind, best_inst = _tri_closest(
+            ro, rd, tmin, tmax, scene, config)
 
     if config.sphere_count > 0:
         t_s, _ = _sphere_tests(ro, rd, scene, tmin, tmax)  # (S, N)
@@ -214,8 +237,7 @@ def intersect_closest(
         best_t = torch.where(better, tj, best_t)
         best_prim = torch.where(better, j.to(torch.int32), best_prim)
         best_kind = torch.where(better, 2, best_kind)
-    return Hit(t=best_t, prim=best_prim, kind=best_kind,
-               inst=torch.zeros(n, dtype=torch.int32, device=dev))
+    return Hit(t=best_t, prim=best_prim, kind=best_kind, inst=best_inst)
 
 
 def intersect_any(
@@ -232,14 +254,18 @@ def intersect_any(
     traversal, or the chunk sweep where there is no BVH), with the sphere
     and curve tests OR-ed in; a scene without triangles takes the
     closest-hit path."""
-    if config.instanced:
-        raise NotImplementedError("instanced traversal: ROADMAP A.8 (instancing)")
     if mask is not None:
         tmax = torch.where(mask, tmax, -1.0)
     if config.tri_count > 0:
         tris = scene.tris
         planes = [p.contiguous() for p in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tmin, tmax)]
-        if config.bvh_nodes > 0:
+        if config.instanced:
+            occ = bvh_anyhit_inst(
+                *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
+                tris.leaf_start, tris.leaf_inst, tris.inst_w2o,
+                tcl=config.bvh_tcl, depth=tris.bvh_depth,
+            )
+        elif config.bvh_nodes > 0:
             occ = bvh_anyhit(
                 *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
                 tcl=config.bvh_tcl, depth=tris.bvh_depth,

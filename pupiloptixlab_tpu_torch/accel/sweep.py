@@ -27,6 +27,39 @@ CHUNK = 64   # rows per chunk (flatten's pad_tris_to)
 GROUP = 32   # chunks per super-box (second culling level)
 
 
+def mt_hit_t(ox, oy, oz, dx, dy, dz, tmn, tmx, tri_cols):
+    """Moller-Trumbore in ``_mt_planes``'s arithmetic, operation by
+    operation, on broadcast-compatible ray and row planes: t where the ray
+    hits in (tmn, tmx), 1e16 elsewhere. ``tri_cols`` is the 9 row planes
+    (p0, e1, e2). The kernels repeat these operations in this order."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tri_cols
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv = torch.reciprocal(
+        torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
+    )
+    tvx = ox - p0x
+    tvy = oy - p0y
+    tvz = oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    del pvx, pvy, pvz
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    del tvx, tvy, tvz
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    del qvx, qvy, qvz, inv
+    ok = (
+        (torch.abs(det) >= _DET_EPS)
+        & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+        & (t > tmn) & (t < tmx)
+    )
+    return torch.where(ok, t, MAX_DISTANCE)
+
+
 def brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit: bool):
     """Closest hit (t, row) of every ray over every row of ``tri`` in
     ``_mt_planes``'s arithmetic (the JAX package's CPU path,
@@ -46,42 +79,12 @@ def brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit: bool):
     r_chunk = max(min(live.numel(), _PAIR_BUDGET // 64), 1)
     for rs in range(0, live.numel(), r_chunk):
         lanes = live[rs:rs + r_chunk]
-        ox, oy, oz, dx, dy, dz, tmn, tmx = (
-            a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
-        )
+        ray = [a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)]
         bt = torch.full((lanes.numel(),), MAX_DISTANCE, dtype=torch.float32, device=dev)
         bi = torch.full((lanes.numel(),), -1, dtype=torch.int32, device=dev)
         t_chunk = max(_PAIR_BUDGET // lanes.numel(), 8)
         for ts in range(0, n_tris, t_chunk):
-            p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-                c[ts:ts + t_chunk][None, :] for c in cols
-            )
-            # _mt_planes, operation by operation
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            inv = torch.reciprocal(
-                torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
-            )
-            tvx = ox - p0x
-            tvy = oy - p0y
-            tvz = oz - p0z
-            u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
-            del pvx, pvy, pvz
-            qvx = tvy * e1z - tvz * e1y
-            qvy = tvz * e1x - tvx * e1z
-            qvz = tvx * e1y - tvy * e1x
-            del tvx, tvy, tvz
-            v = (dx * qvx + dy * qvy + dz * qvz) * inv
-            t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
-            del qvx, qvy, qvz, inv
-            ok = (
-                (torch.abs(det) >= _DET_EPS)
-                & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (t > tmn) & (t < tmx)
-            )
-            t = torch.where(ok, t, MAX_DISTANCE)
+            t = mt_hit_t(*ray, [c[ts:ts + t_chunk][None, :] for c in cols])
             tj, j = torch.min(t, dim=1)  # first (lowest) index among ties
             better = tj < bt
             bt = torch.where(better, tj, bt)

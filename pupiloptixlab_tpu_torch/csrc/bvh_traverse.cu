@@ -1,17 +1,32 @@
-// Wide-BVH ray traversal for Hopper: closest hit (K1) and any hit (K2).
+// Wide-BVH ray traversal for Hopper: closest hit (K1) and any hit (K2) over
+// world-space tables, and their instanced forms K7 and K8.
 //
 // Replaces the Pallas TPU kernels of pupiloptixlab_tpu/accel/pallas_bvh.py:
-//   launch_bvh_closest <- _make_closest_kernel (resident, non-instanced),
-//                         reached through bvh_closest
-//   launch_bvh_anyhit  <- _make_anyhit_kernel  (resident, non-instanced),
-//                         reached through bvh_anyhit
+//   launch_bvh_closest      <- _make_closest_kernel, resident and stream=True
+//                              (the streamed form differs only in how the TPU
+//                              brings leaf rows to its core), via bvh_closest
+//   launch_bvh_anyhit       <- _make_anyhit_kernel, resident and stream=True,
+//                              via bvh_anyhit
+//   launch_bvh_closest_inst <- _make_closest_kernel(instanced=True)
+//   launch_bvh_anyhit_inst  <- _make_anyhit_kernel(instanced=True)
 //
 // What it computes: per ray, over the 8-wide BVH of accel/bvh.py (child ids
-// with leaves encoded as -(row+1), one split axis per node, 8 child boxes of
+// with leaves encoded as -(id+1), one split axis per node, 8 child boxes of
 // 8 floats per node) and the (T, 12) [p0, e1, e2, pad] triangle table:
 //   K1: the closest Moller-Trumbore hit (t, row) with t in (tmin, tmax);
 //       a miss writes t = 1e16, row = -1.
 //   K2: an int32 flag, 1 when any triangle is hit in (tmin, tmax).
+// Baked tables: a leaf id is -(row+1), the leaf's first row.
+// Instanced tables (flatten/instanced.py): the tree is a world tree over
+// per-instance leaf boxes built at one leaf per slot, and a leaf id -(li+1)
+// indexes leaf_start / leaf_inst; the triangle table holds unique
+// OBJECT-space rows. At a leaf the ray is mapped into the instance's object
+// space through its 3x4 world-to-object matrix (w0*x + w1*y + w2*z + w3,
+// summed left to right; directions are not renormalised, so t stays the
+// world parameter) and tested against the leaf's tcl rows. Boxes are world
+// boxes tested with the world ray.
+//   K7: closest (t, unique row, world leaf); a miss writes (1e16, -1, -1).
+//   K8: the any-hit flag.
 //
 // Design. The TPU kernel walks a 1024-ray TILE through the tree together
 // because the TPU has no per-lane control flow; Hopper does, so here each
@@ -19,24 +34,33 @@
 // local memory; the wrapper checks 7 * depth + 1 <= 64 from the depth the
 // flatten records). Children are pushed far-to-near by the ray's own
 // direction sign along the node's split axis (children are stored sorted
-// along it), so the near child pops first.
+// along it), so the near child pops first. One templated body serves the
+// baked and instanced forms (kInst), so the two share the traversal loop.
 //
 // Bounds on the card: traversal is latency-bound on dependent loads of node
 // boxes (32 B) and leaf rows (48 B) plus divergence between the rays of a
 // warp. Rays are 128-thread blocks in the caller's lane order; on the main
 // path primary rays arrive in 8x128 pixel blocks, so a warp's rays are
-// coherent. Node and triangle tables are small (mesh_env: 80 KB of boxes,
-// 1 MB of triangles) and stay in L2/L1; all loads go through the read-only
-// path. Sorting secondary rays for coherence is left to later, measured work.
+// coherent. The TPU streams tables above 8 MB through a DMA ring because its
+// core holds ~16 MB; here every table is read from device memory through the
+// read-only path and the 50 MB L2 (big_env: 19.4 MB of rows, 0.4 MB of
+// boxes), so one kernel serves both sizes. The instanced unique table is
+// small (the 64-instance scene: 396 KB) and stays in L2. Sorting secondary
+// rays for coherence is left to later, measured work.
 //
 // Exactness. The slab test (ray_tests.cuh) is exactly _slab8 with tfar
 // clamped by the running best t, and the leaf test is _mt_planes with IEEE
-// 1/det under -fmad=false, so t is bit-identical to the plain PyTorch
-// sweep. Ties at equal t keep the lowest row, which makes
-// (t, row) independent of visit order and equal to the brute sweep's
-// choice. Empty child slots carry child id 0 with a never-hit point box at
-// 1e30; id 0 is never pushed as a child, and a visit cap (every slot of the
-// tree once) sets an error flag that the wrapper raises on.
+// 1/det under -fmad=false (the instance transform too), so t is
+// bit-identical to the plain PyTorch versions. Ties at equal t keep the
+// lowest row (K1), or the lowest world leaf and then the lowest row (K7: the
+// rule of the reference's plain leaf scan, intersect.py:447-505), which makes
+// the result independent of visit order. Entries are pruned only when their
+// box starts strictly beyond the best t, so a tied leaf is still visited.
+// Hidden instances carry a zero matrix: their object-space direction is 0,
+// so det = 0 fails |det| >= 1e-12 (no NaN). Empty child slots carry child id
+// 0 with a never-hit point box at 1e30; id 0 is never pushed as a child, and
+// a visit cap (every slot of the tree once) sets an error flag that the
+// wrapper raises on.
 
 #include "ray_tests.cuh"
 
@@ -49,12 +73,43 @@ constexpr int kThreads = 128;
 
 enum : int { kErrVisitCap = 1, kErrStack = 2 };
 
-__device__ __forceinline__ int leaf_start(int id, int t_rows, int tcl) {
+// Leaf tables of an instanced scene (unused by the baked form).
+struct InstTables {
+  const int* leaf_start;  // (L,) first unique row of each world leaf
+  const int* leaf_inst;   // (L,) instance of each world leaf
+  const float* w2o;       // (I, 12) world-to-object 3x4, row-major
+  int n_leaves;
+};
+
+__device__ __forceinline__ int baked_start(int id, int t_rows, int tcl) {
   // clamp_leaf of the reference: rows [start, start + tcl) stay in the table
   const int s = -(id + 1);
   return min(max(s, 0), t_rows - tcl);
 }
 
+// The world-leaf index of a leaf id, clamped as the reference clips it.
+__device__ __forceinline__ int world_leaf(int id, const InstTables& it) {
+  return min(max(-(id + 1), 0), it.n_leaves - 1);
+}
+
+// The ray in the object space of one instance: w0*x + w1*y + w2*z + w3,
+// summed left to right (unfused under -fmad=false), as the plain leaf scan.
+__device__ __forceinline__ Ray to_object(const Ray& r, const float* __restrict__ w) {
+  const float w0 = __ldg(w + 0), w1 = __ldg(w + 1), w2 = __ldg(w + 2), w3 = __ldg(w + 3);
+  const float w4 = __ldg(w + 4), w5 = __ldg(w + 5), w6 = __ldg(w + 6), w7 = __ldg(w + 7);
+  const float w8 = __ldg(w + 8), w9 = __ldg(w + 9), w10 = __ldg(w + 10),
+              w11 = __ldg(w + 11);
+  Ray o = r;
+  o.ox = w0 * r.ox + w1 * r.oy + w2 * r.oz + w3;
+  o.oy = w4 * r.ox + w5 * r.oy + w6 * r.oz + w7;
+  o.oz = w8 * r.ox + w9 * r.oy + w10 * r.oz + w11;
+  o.dx = w0 * r.dx + w1 * r.dy + w2 * r.dz;
+  o.dy = w4 * r.dx + w5 * r.dy + w6 * r.dz;
+  o.dz = w8 * r.dx + w9 * r.dy + w10 * r.dz;
+  return o;
+}
+
+template <bool kInst>
 __global__ void __launch_bounds__(kThreads)
 bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -62,14 +117,15 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ tmin, const float* __restrict__ tmax,
                    const float4* __restrict__ tri, const int* __restrict__ child,
                    const int* __restrict__ axis, const float4* __restrict__ boxes,
-                   int n, int t_rows, int tcl, int n_nodes,
+                   const InstTables it, int n, int t_rows, int tcl, int n_nodes,
                    float* __restrict__ t_out, int* __restrict__ i_out,
-                   int* __restrict__ err) {
+                   int* __restrict__ l_out, int* __restrict__ err) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
   float tbest = kMaxDistance;
   int ibest = -1;
+  int lbest = -1;  // world leaf of the best hit (instanced form)
   if (r.tmx > r.tmn) {  // culled lanes (empty interval) return at once
     int stack[kStack];
     float stack_tn[kStack];
@@ -86,14 +142,30 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       // (ties stay: the slab test's tn <= tf is inclusive too)
       if (stack_tn[sp] > tbest) continue;
       if (id < 0) {
-        const int s = leaf_start(id, t_rows, tcl);
-        for (int j = 0; j < tcl; ++j) {
-          float t;
-          const int row = s + j;
-          if (moller_trumbore(tri + (size_t)row * 3, r, &t) &&
-              (t < tbest || (t == tbest && row < ibest))) {
-            tbest = t;
-            ibest = row;
+        if constexpr (kInst) {
+          const int li = world_leaf(id, it);
+          const int s = min(max(__ldg(it.leaf_start + li), 0), t_rows - tcl);
+          const Ray ro = to_object(r, it.w2o + (size_t)__ldg(it.leaf_inst + li) * 12);
+          for (int j = 0; j < tcl; ++j) {
+            float t;
+            // rows ascend within the leaf, so strict < keeps the lowest row
+            if (moller_trumbore(tri + (size_t)(s + j) * 3, ro, &t) &&
+                (t < tbest || (t == tbest && li < lbest))) {
+              tbest = t;
+              ibest = s + j;
+              lbest = li;
+            }
+          }
+        } else {
+          const int s = baked_start(id, t_rows, tcl);
+          for (int j = 0; j < tcl; ++j) {
+            float t;
+            const int row = s + j;
+            if (moller_trumbore(tri + (size_t)row * 3, r, &t) &&
+                (t < tbest || (t == tbest && row < ibest))) {
+              tbest = t;
+              ibest = row;
+            }
           }
         }
         continue;
@@ -116,8 +188,10 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   }
   t_out[i] = tbest;
   i_out[i] = ibest;
+  if constexpr (kInst) l_out[i] = lbest;
 }
 
+template <bool kInst>
 __global__ void __launch_bounds__(kThreads)
 bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                   const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -125,7 +199,7 @@ bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                   const float* __restrict__ tmin, const float* __restrict__ tmax,
                   const float4* __restrict__ tri, const int* __restrict__ child,
                   const int* __restrict__ axis, const float4* __restrict__ boxes,
-                  int n, int t_rows, int tcl, int n_nodes,
+                  const InstTables it, int n, int t_rows, int tcl, int n_nodes,
                   int* __restrict__ occ_out, int* __restrict__ err) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
@@ -140,10 +214,18 @@ bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       if (--visits < 0) { atomicOr(err, kErrVisitCap); break; }
       const int id = stack[--sp];
       if (id < 0) {
-        const int s = leaf_start(id, t_rows, tcl);
+        int s;
+        Ray ro = r;
+        if constexpr (kInst) {
+          const int li = world_leaf(id, it);
+          s = min(max(__ldg(it.leaf_start + li), 0), t_rows - tcl);
+          ro = to_object(r, it.w2o + (size_t)__ldg(it.leaf_inst + li) * 12);
+        } else {
+          s = baked_start(id, t_rows, tcl);
+        }
         for (int j = 0; j < tcl; ++j) {
           float t;
-          if (moller_trumbore(tri + (size_t)(s + j) * 3, r, &t)) {
+          if (moller_trumbore(tri + (size_t)(s + j) * 3, ro, &t)) {
             occluded = 1;
             break;
           }
@@ -172,11 +254,11 @@ extern "C" int launch_bvh_closest(
     int n, int t_rows, int tcl, int n_nodes, float* t_out, int* i_out, int* err,
     cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), n, t_rows, tcl, n_nodes,
-        t_out, i_out, err);
+        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -188,11 +270,47 @@ extern "C" int launch_bvh_anyhit(
     int n, int t_rows, int tcl, int n_nodes, int* occ_out, int* err,
     cudaStream_t stream) {
   if (n > 0) {
-    bvh_anyhit_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_anyhit_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), n, t_rows, tcl, n_nodes,
-        occ_out, err);
+        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        n, t_rows, tcl, n_nodes, occ_out, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_bvh_closest_inst(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* tri, const int* child, const int* axis, const float* boxes,
+    const int* leaf_start, const int* leaf_inst, const float* w2o,
+    int n, int t_rows, int tcl, int n_nodes, int n_leaves,
+    float* t_out, int* i_out, int* l_out, int* err, cudaStream_t stream) {
+  if (n > 0) {
+    bvh_closest_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+        reinterpret_cast<const float4*>(tri), child, axis,
+        reinterpret_cast<const float4*>(boxes),
+        InstTables{leaf_start, leaf_inst, w2o, n_leaves},
+        n, t_rows, tcl, n_nodes, t_out, i_out, l_out, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_bvh_anyhit_inst(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* tri, const int* child, const int* axis, const float* boxes,
+    const int* leaf_start, const int* leaf_inst, const float* w2o,
+    int n, int t_rows, int tcl, int n_nodes, int n_leaves,
+    int* occ_out, int* err, cudaStream_t stream) {
+  if (n > 0) {
+    bvh_anyhit_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+        reinterpret_cast<const float4*>(tri), child, axis,
+        reinterpret_cast<const float4*>(boxes),
+        InstTables{leaf_start, leaf_inst, w2o, n_leaves},
+        n, t_rows, tcl, n_nodes, occ_out, err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,13 @@ into float32/int32 (JAX runs with x64 off), while ``torch.as_tensor``
 keeps 64 bits; ``_t`` maps them explicitly so every table is float32,
 int32 or bool exactly as in the reference.
 
-Scenes the reference would flatten into the instanced tables
-(flatten.py:742-753) raise NotImplementedError here: device-side
-instancing is ROADMAP item A.8.
+Scenes whose shapes repeat enough (``tri_count / unique_count >= 1.5``
+on the BVH route) flatten into the instanced tables of
+flatten/instanced.py, as in the reference (flatten.py:729-753);
+``allow_instanced=False`` keeps the baked world tables. With
+``return_refit`` the flatten also returns the static records of the
+device refit (flatten/refit.py), and then takes the instanced tables only
+for mesh-only, non-emissive scenes (``inst_refit_ok``).
 """
 
 from __future__ import annotations
@@ -343,11 +347,16 @@ def _tessellate_curve(pts: np.ndarray, basis: str, subdiv: int = 8):
 
 
 def flatten_scene(
-    scene: Scene, pad_tris_to: int = 64, allow_instanced: bool = True,
-    device=None,
+    scene: Scene, pad_tris_to: int = 64, return_refit: bool = False,
+    allow_instanced: bool = True, device=None,
 ):
-    """Scene -> (SceneData, RenderConfig) with every table on ``device``
-    (``None``: the card; raises where there is none)."""
+    """Scene -> (SceneData, RenderConfig[, RefitData | InstRefitData])
+    with every table on ``device`` (``None``: the card; raises where there
+    is none).
+
+    With ``return_refit`` the flatten also captures the static
+    instance/topology records that let transform and visibility edits run
+    as a device refit (flatten/refit.py) instead of a host re-flatten."""
     device = resolve_device(device)
     textures = _TextureBuilder()
     materials = _MaterialBuilder(textures)
@@ -356,8 +365,16 @@ def flatten_scene(
     tp = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2")}
     t_mat: list[int] = []
     t_emit: list[int] = []
+    t_inst: list[int] = []     # instance index per triangle
+    t_urow: list[int] = []     # unique object-space row per triangle
+    unique_rows: list[np.ndarray] = []  # (nf, 18) blocks per unique shape
     unique_base: dict[str, int] = {}    # shape key -> base row
     unique_count = 0
+    # device-side instancing capture (flatten/instanced.py)
+    shape_store: dict[str, dict] = {}
+    inst_meta: list[dict] = []
+    em_base_w: list[float] = []         # per emitter: radiance weight basis
+    sphere_inst: list[int] = []         # instance index per sphere row
     c_rows: list[np.ndarray] = []       # curve segment rows (CRV_COLS)
     # spheres
     s_o2w, s_w2o, s_mat, s_emit, s_flip = [], [], [], [], []
@@ -432,6 +449,9 @@ def flatten_scene(
             s_mat.append(mat_id)
             s_emit.append(emitter_id)
             s_flip.append(bool(ins.flip_normals))
+            sphere_inst.append(inst_i)
+            if emitter_id >= 0:
+                em_base_w.append(ins.emitter.radiance.max_channel_weight())
             continue
 
         if ins.shape.type == ShapeType.CURVE:
@@ -506,6 +526,9 @@ def flatten_scene(
             emitter_base = add_area_tri_emitters(
                 world_p, wn_for_emit, uv, idx, rad_tex, weight_scale
             )
+            em_base_w.extend(
+                [ins.emitter.radiance.max_channel_weight()] * idx.shape[0]
+            )
 
         f0, f1, f2 = idx[:, 0], idx[:, 1], idx[:, 2]
         tp["p0"].append(world_p[f0]); tp["p1"].append(world_p[f1]); tp["p2"].append(world_p[f2])
@@ -520,16 +543,50 @@ def flatten_scene(
         tp["uv0"].append(uv[f0]); tp["uv1"].append(uv[f1]); tp["uv2"].append(uv[f2])
         nf = idx.shape[0]
         t_mat.extend([mat_id] * nf)
-        # unique object-space row count per shape key: decides whether the
-        # reference would instance this scene (see below)
+        t_inst.extend([inst_i] * nf)
+        # unique OBJECT-space rows per shape, stored once: the baked refit's
+        # unique table and the instanced tables' per-shape blocks
+        # (flatten/instanced.py). Normals unflipped: the refit and the
+        # instance rows apply per-instance signs.
         key = ins.shape.key or f"anon-{inst_i}"
         if key not in unique_base:
+            op = mesh.positions.astype(np.float32)
+            op0, op1, op2 = op[f0], op[f1], op[f2]
+            if obj_n is not None:
+                on = mesh.normals.astype(np.float32)
+                on0, on1, on2 = on[f0], on[f1], on[f2]
+            else:
+                ofn = np.cross(op1 - op0, op2 - op0)
+                ofn /= np.maximum(
+                    np.linalg.norm(ofn, axis=-1, keepdims=True), 1e-20
+                )
+                on0 = on1 = on2 = ofn
+            uv_raw = (
+                mesh.texcoords.astype(np.float32)
+                if mesh.texcoords is not None
+                else np.zeros((len(op), 2), np.float32)
+            )
+            shape_store[key] = dict(
+                p0=op0, e1=op1 - op0, e2=op2 - op0,
+                n0=on0, n1=on1, n2=on2,
+                uv0=uv_raw[f0], uv1=uv_raw[f1], uv2=uv_raw[f2],
+            )
+            blk = shape_store[key]
             unique_base[key] = unique_count
+            unique_rows.append(np.concatenate(
+                [blk[c] for c in ("p0", "e1", "e2", "n0", "n1", "n2")], axis=1))
             unique_count += nf
+        t_urow.extend(range(unique_base[key], unique_base[key] + nf))
         if emitter_base >= 0:
             t_emit.extend(range(emitter_base, emitter_base + nf))
         else:
             t_emit.extend([-1] * nf)
+        inst_meta.append(dict(
+            key=key, matrix=np.asarray(m, np.float64), mat_id=mat_id,
+            emitter_base=emitter_base, flip=bool(ins.flip_normals),
+            uv_flip=bool(ins.flip_tex_coords and mesh.texcoords is not None),
+            hidden=bool(hidden), scene_idx=inst_i,
+        ))
 
     # -- delta lights (point / directional) ----------------------------------
     # The reference parses these but never flattens them (the TODO at
@@ -564,6 +621,7 @@ def flatten_scene(
         e["area"].append(1.0)
         e["weight"].append(float(np.max(gem.intensity)))
         e["rad_tex"].append(rad_tex)
+        em_base_w.append(float(np.max(gem.intensity)))
 
     # -- selection probabilities (emitter.cpp:321-337) ----------------------
     n_area = len(e["etype"])
@@ -672,16 +730,31 @@ def flatten_scene(
         bvh_tcl = 0
     t_pad = _round_up(tri_count, max(pad_tris_to, bvh_tcl))
 
-    # The reference replaces the world tables by deduplicated object-space
-    # rows + a leaf-(start, instance) BVH when shapes repeat enough
-    # (flatten.py:742-753); that path is not ported.
-    if (allow_instanced and use_bvh and unique_count
+    # Device-side instancing (flatten/instanced.py): when shapes repeat
+    # enough that deduplicated object-space storage pays for the per-leaf
+    # ray transform, the world tables below are replaced by unique rows
+    # + a leaf-(start, instance) BVH. Refit mode (interactive edits)
+    # joins the instanced path when the scene is mesh-only and
+    # non-emissive: a transform edit then refits the leaf/world boxes
+    # in place (InstRefitData); emissive/sphere/curve scenes keep the
+    # baked path whose device-refit tables rebuild emitter rows too.
+    inst_tab = None
+    inst_refit_ok = (
+        not any(mm["emitter_base"] >= 0 for mm in inst_meta)
+        and not s_mat and not c_rows
+    )
+    if (allow_instanced and use_bvh
+            and (not return_refit or inst_refit_ok) and unique_count
             and tri_count / unique_count >= 1.5):
-        raise NotImplementedError(
-            "device-side instancing (ROADMAP A.8) is not ported; pass "
-            "allow_instanced=False to flatten the baked world tables"
-        )
-    build_world_bvh = use_bvh
+        from pupiloptixlab_tpu_torch.flatten.instanced import build_instanced_tables
+
+        try:
+            inst_tab = build_instanced_tables(
+                shape_store, inst_meta, tcl0=max(bvh_tcl, 32)
+            )
+        except np.linalg.LinAlgError:
+            inst_tab = None
+    build_world_bvh = use_bvh and inst_tab is None
 
     # --- Morton-order triangles (LBVH-lite): sorting by centroid code
     # groups spatially-local triangles into the same sweep chunk so the
@@ -714,6 +787,8 @@ def flatten_scene(
             tp[key] = [cat[order]]
         t_mat = list(np.asarray(t_mat)[order])
         t_emit = list(np.asarray(t_emit)[order])
+        t_inst = list(np.asarray(t_inst)[order])
+        t_urow = list(np.asarray(t_urow)[order])
 
     def pad_rows(a, n, width):
         out = np.zeros((n, width), np.float32)
@@ -751,6 +826,11 @@ def flatten_scene(
     p2w = p0_np + packed[:, 6:9]
     valid = np.zeros(t_pad, bool)
     valid[:tri_count] = True
+    # refit row maps (padding rows -> instance 0, unique row 0, invalid)
+    tri_inst_np = np.zeros(t_pad, np.int32)
+    tri_inst_np[:tri_count] = t_inst
+    t_urow_np = np.zeros(t_pad, np.int32)
+    t_urow_np[:tri_count] = t_urow
 
     # --- BVH build (GAS analog): reorders triangle rows so each leaf is
     # one contiguous TCL-aligned slice of the packed table ----------------
@@ -764,6 +844,8 @@ def flatten_scene(
         attrs = attrs[o]
         p1w, p2w, valid = p1w[o], p2w[o], valid[o]
         p0_np = p0_np[o]
+        tri_inst_np = tri_inst_np[o]
+        t_urow_np = t_urow_np[o]
         bvh_ch, bvh_ax, bvh_bx = bvh.child, bvh.axis, bvh.boxes
         bvh_nodes = bvh.n_nodes
 
@@ -779,23 +861,52 @@ def flatten_scene(
     boxes[:, 0:3] = lo_all.reshape(n_chunks, tc, 3).min(axis=1)
     boxes[:, 3:6] = hi_all.reshape(n_chunks, tc, 3).max(axis=1)
 
-    chunk_boxes = _t(boxes, device=device)
-    tris = TriSoup(
-        packed=_t(packed, device=device),
-        chunk_boxes=chunk_boxes,
-        super_boxes=super_boxes(chunk_boxes),
-        attrs=_t(attrs, device=device),
-        mat_id=_t(attrs[:, TRI_MAT].astype(np.int32), device=device),
-        emitter_id=_t(attrs[:, TRI_EMITTER].astype(np.int32), device=device),
-        bvh_child=_t(bvh_ch, device=device),
-        bvh_axis=_t(bvh_ax, device=device),
-        bvh_boxes=_t(bvh_bx, device=device),
-        leaf_start=torch.zeros(1, dtype=torch.int32, device=device),
-        leaf_inst=torch.zeros(1, dtype=torch.int32, device=device),
-        inst_w2o=torch.zeros((1, 12), dtype=torch.float32, device=device),
-        inst_packed=torch.zeros((1, 16), dtype=torch.float32, device=device),
-        bvh_depth=bvh_depth(bvh_ch) if bvh_nodes > 0 else 0,
-    )
+    if inst_tab is not None:
+        # deduplicated tables replace the baked world geometry entirely
+        packed = inst_tab["packed"]
+        attrs = inst_tab["attrs"]
+        bvh_ch = inst_tab["bvh_child"]
+        bvh_ax = inst_tab["bvh_axis"]
+        bvh_bx = inst_tab["bvh_boxes"]
+        bvh_nodes = inst_tab["bvh_nodes"]
+        bvh_tcl = inst_tab["tcl"]
+        chunk_boxes = _t(np.zeros((max(packed.shape[0] // tc, 1), 8), np.float32),
+                         device=device)
+        tris = TriSoup(
+            packed=_t(packed, device=device),
+            chunk_boxes=chunk_boxes,
+            super_boxes=super_boxes(chunk_boxes),
+            attrs=_t(attrs, device=device),
+            mat_id=torch.zeros(packed.shape[0], dtype=torch.int32, device=device),
+            emitter_id=_t(attrs[:, TRI_EMITTER].astype(np.int32), device=device),
+            bvh_child=_t(bvh_ch, device=device),
+            bvh_axis=_t(bvh_ax, device=device),
+            bvh_boxes=_t(bvh_bx, device=device),
+            leaf_start=_t(inst_tab["leaf_start"], device=device),
+            leaf_inst=_t(inst_tab["leaf_inst"], device=device),
+            inst_w2o=_t(inst_tab["inst_w2o"], device=device),
+            inst_packed=_t(inst_tab["inst_packed"], device=device),
+            bvh_depth=bvh_depth(bvh_ch),
+        )
+        tri_count = inst_tab["tri_count_padded"]
+    else:
+        chunk_boxes = _t(boxes, device=device)
+        tris = TriSoup(
+            packed=_t(packed, device=device),
+            chunk_boxes=chunk_boxes,
+            super_boxes=super_boxes(chunk_boxes),
+            attrs=_t(attrs, device=device),
+            mat_id=_t(attrs[:, TRI_MAT].astype(np.int32), device=device),
+            emitter_id=_t(attrs[:, TRI_EMITTER].astype(np.int32), device=device),
+            bvh_child=_t(bvh_ch, device=device),
+            bvh_axis=_t(bvh_ax, device=device),
+            bvh_boxes=_t(bvh_bx, device=device),
+            leaf_start=torch.zeros(1, dtype=torch.int32, device=device),
+            leaf_inst=torch.zeros(1, dtype=torch.int32, device=device),
+            inst_w2o=torch.zeros((1, 12), dtype=torch.float32, device=device),
+            inst_packed=torch.zeros((1, 16), dtype=torch.float32, device=device),
+            bvh_depth=bvh_depth(bvh_ch) if bvh_nodes > 0 else 0,
+        )
 
     sphere_count = len(s_mat)
     s_pad = max(sphere_count, 1)
@@ -954,9 +1065,116 @@ def flatten_scene(
         has_directional_emitter=any(t == 3 for t in e["etype"]),
         bvh_nodes=bvh_nodes,
         bvh_tcl=bvh_tcl,
-        instanced=False,
+        instanced=inst_tab is not None,
     )
-    return data, config
+    if not return_refit:
+        return data, config
+
+    if inst_tab is not None:
+        # -- instanced refit capture (flatten/refit.py) ----------------------
+        # Object-space leaf boxes are STATIC under transform edits; the
+        # refit only recomputes world leaf boxes + the box tree + the
+        # per-instance matrices (the OptiX IAS-refit shape exactly).
+        from pupiloptixlab_tpu_torch.flatten.types import InstRefitData
+
+        i_pk = inst_tab["packed"]
+        i_at = inst_tab["attrs"]
+        i_tcl = inst_tab["tcl"]
+        ls = inst_tab["leaf_start"]
+        p0 = i_pk[:, 0:3]
+        p1 = p0 + i_pk[:, 3:6]
+        p2 = p0 + i_pk[:, 6:9]
+        v_ok = i_at[:, TRI_EMITTER] >= 0
+        r_lo = np.where(v_ok[:, None], np.minimum(np.minimum(p0, p1), p2), 1e30)
+        r_hi = np.where(v_ok[:, None], np.maximum(np.maximum(p0, p1), p2), -1e30)
+        row_idx = ls[:, None] + np.arange(i_tcl)[None, :]  # (L, tcl)
+        obj_lo = r_lo[row_idx].min(axis=1).astype(np.float32)
+        obj_hi = r_hi[row_idx].max(axis=1).astype(np.float32)
+        refit = InstRefitData(
+            obj_leaf_lo=obj_lo,
+            obj_leaf_hi=obj_hi,
+            leaf_inst=inst_tab["leaf_inst"].copy(),
+            child=inst_tab["bvh_child"].copy(),
+            inst_packed=inst_tab["inst_packed"].copy(),
+            mesh_scene_idx=np.asarray(
+                [mm["scene_idx"] for mm in inst_meta], np.int32
+            ),
+            n_instances=len(scene.shape_instances),
+            instance_names=[i.name for i in scene.shape_instances],
+        )
+        return data, config, refit
+
+    # -- static refit metadata (flatten/refit.py) ---------------------------
+    from pupiloptixlab_tpu_torch.flatten.types import RefitData
+
+    u_table = (
+        np.concatenate(unique_rows, axis=0)
+        if unique_rows
+        else np.zeros((1, 18), np.float32)
+    )
+    # per-emitter tri row: invert the per-tri emitter ids
+    em_tri_row = np.full(max(n_area, 1), -1, np.int32)
+    t_emit_final = attrs[:, 16].astype(np.int32)  # TRI_EMITTER column
+    rows_with_em = np.where(t_emit_final >= 0)[0]
+    em_tri_row[t_emit_final[rows_with_em]] = rows_with_em
+    em_sphere_inst = np.full(max(n_area, 1), -1, np.int32)
+    for si, eid in enumerate(s_emit):
+        if eid >= 0:
+            em_sphere_inst[eid] = sphere_inst[si]
+    base_w = np.zeros(max(n_area, 1), np.float32)
+    if em_base_w:
+        base_w[: len(em_base_w)] = em_base_w
+
+    # BVH slot topology
+    if bvh_nodes > 0:
+        ids = bvh_ch.reshape(-1, 8)
+        boxes8 = bvh_bx.reshape(-1, 8, 8)
+        empty = boxes8[..., 0] >= 1e30
+        slot_kind = np.where(
+            empty, 0, np.where(ids < 0, 1, 2)
+        ).astype(np.int32).reshape(-1)
+        slot_ref = np.where(
+            ids < 0, (-ids - 1) // max(bvh_tcl, 1), ids
+        ).astype(np.int32).reshape(-1)
+        depth = np.zeros(bvh_nodes, np.int32)
+        for i in range(bvh_nodes):
+            for cid in ids[i]:
+                if cid > 0:
+                    depth[cid] = depth[i] + 1
+        refit_depth = int(depth.max()) + 1
+    else:
+        slot_kind = np.zeros(8, np.int32)
+        slot_ref = np.zeros(8, np.int32)
+        refit_depth = 0
+
+    flips = np.asarray(
+        [
+            -1.0 if getattr(i, "flip_normals", False) else 1.0
+            for i in scene.shape_instances
+        ]
+        or [1.0],
+        np.float32,
+    )
+    refit = RefitData(
+        unique_rows=u_table,
+        u_row=t_urow_np.astype(np.int32),
+        tri_inst=tri_inst_np.astype(np.int32),
+        tri_valid=valid,
+        flip_sign=flips,
+        slot_kind=slot_kind,
+        slot_ref=slot_ref,
+        depth=refit_depth,
+        tcl=max(bvh_tcl, 1),
+        em_tri_row=em_tri_row,
+        em_sphere_inst=em_sphere_inst,
+        em_base_weight=base_w,
+        n_area=n_area,
+        emitter_num=emitter_num,
+        sphere_inst=np.asarray(sphere_inst or [-1], np.int32),
+        n_instances=len(scene.shape_instances),
+        instance_names=[i.name for i in scene.shape_instances],
+    )
+    return data, config, refit
 
 
 def camera_block_from_scene(scene: Scene, device=None) -> CameraBlock:

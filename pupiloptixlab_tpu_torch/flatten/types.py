@@ -2,13 +2,15 @@
 
 Mirrors pupiloptixlab_tpu/flatten/types.py field for field; the packed
 column layouts are copied verbatim so both packages address the same
-tables. ``RenderConfig`` stays a frozen dataclass of Python values.
+tables. ``RenderConfig`` stays a frozen dataclass of Python values; the
+refit records (``RefitData``, ``InstRefitData``) hold host numpy arrays.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 # --- packed-row column layouts (verbatim from the reference) -------------
@@ -58,10 +60,13 @@ SPH_MAT, SPH_EMITTER, SPH_FLIP = 12, 13, 14
 SPH_COLS = 16
 
 # TriSoup.inst_packed (I, 16): per-instance shading row (instanced mode)
-INST_NRM = slice(0, 9)
-INST_MAT = 9
-INST_EMIT_BASE = 10
-INST_W2O0 = 11
+INST_NRM = slice(0, 9)   # normal matrix: inverse-transpose 3x3 row-major,
+                         # flip_normals sign folded in
+INST_MAT = 9             # material id
+INST_EMIT_BASE = 10      # emitter table base (-1 = not an emitter); the
+                         # hit's emitter_id = base + attrs[TRI_EMITTER]
+                         # (which holds the shape-local face index)
+INST_W2O0 = 11           # 1.0 = flip the v texture coordinate
 INST_COLS = 16
 
 # Curves.packed (C, 12): segment endpoints + radii + ids
@@ -104,24 +109,32 @@ class MaterialTable:
 
 @dataclass
 class TriSoup:
-    """World-space triangle table, BVH node tables (8-wide, accel/bvh.py)
-    and the instancing placeholders (1-row; instancing is not ported).
+    """Triangle table and BVH node tables (8-wide, accel/bvh.py).
     ``super_boxes`` is derived from ``chunk_boxes`` once, for the culled sweep.
     ``bvh_depth`` is the tree depth (root = 1), recorded at flatten time
-    so the traversal kernel can check its per-thread stack bound."""
+    so the traversal kernels can check their per-thread stack bound.
+
+    Baked scenes hold world-space rows and leave the instancing tables as
+    1-row placeholders. Instanced scenes (``config.instanced``,
+    flatten/instanced.py) hold each repeated shape once: ``packed`` /
+    ``attrs`` are unique OBJECT-space rows, the BVH is a world tree over
+    per-instance leaf boxes whose leaf ids ``-(li+1)`` index
+    ``leaf_start`` / ``leaf_inst``, and the traversal maps the ray into
+    the leaf's instance space through ``inst_w2o`` (directions are not
+    renormalised, so t stays the world parameter)."""
 
     packed: torch.Tensor       # (T,12) [p0, e1, e2, pad]
     chunk_boxes: torch.Tensor  # (T/64, 8)
     attrs: torch.Tensor        # (T, TRI_ATTR_COLS)
     mat_id: torch.Tensor       # (T,) i32
     emitter_id: torch.Tensor   # (T,) i32; -1 = not an emitter
-    bvh_child: torch.Tensor    # (M*8,) i32; >=0 child node, <0 leaf start
+    bvh_child: torch.Tensor    # (M*8,) i32; >=0 child node, <0 leaf
     bvh_axis: torch.Tensor     # (M,) i32
     bvh_boxes: torch.Tensor    # (M*8, 8) f32
-    leaf_start: torch.Tensor
-    leaf_inst: torch.Tensor
-    inst_w2o: torch.Tensor
-    inst_packed: torch.Tensor
+    leaf_start: torch.Tensor   # (L,) i32 tcl-aligned unique-row start per world leaf
+    leaf_inst: torch.Tensor    # (L,) i32 instance per world leaf
+    inst_w2o: torch.Tensor     # (I, 12) f32 world->object 3x4 row-major
+    inst_packed: torch.Tensor  # (I, INST_COLS) f32 shading row
     super_boxes: torch.Tensor  # (G, 8) over groups of 32 chunk boxes (accel/sweep.py)
     bvh_depth: int = 0
 
@@ -221,3 +234,52 @@ class RenderConfig:
     instanced: bool = False
     debug_checks: bool = False
     spectral: bool = False
+
+
+# --- refit records (host side, numpy; flatten/refit.py) -------------------
+@dataclass
+class RefitData:
+    """Static (per-scene-topology) inputs of the baked device refit,
+    captured by ``flatten_scene(..., return_refit=True)``."""
+
+    # unique object-space geometry: (U, 18) [p0 e1 e2 n0 n1 n2]
+    unique_rows: np.ndarray
+    u_row: np.ndarray       # (T,) i32 row into unique_rows (BVH order)
+    tri_inst: np.ndarray    # (T,) i32 instance id per row (BVH order)
+    tri_valid: np.ndarray   # (T,) bool
+    flip_sign: np.ndarray   # (I,) f32 +-1 (flip_normals per instance)
+    # BVH slot topology (static): kind 0=empty 1=leaf 2=internal
+    slot_kind: np.ndarray   # (M*8,) i32
+    slot_ref: np.ndarray    # (M*8,) i32 leaf index or child node id
+    depth: int              # bottom-up refit passes needed
+    tcl: int
+    # emitters
+    em_tri_row: np.ndarray      # (E,) i32 tri row for tri-area emitters, -1 else
+    em_sphere_inst: np.ndarray  # (E,) i32 instance id for sphere emitters, -1
+    em_base_weight: np.ndarray  # (E,) f32 max-channel(radiance) factors
+    n_area: int
+    emitter_num: int            # n_area + (1 if env)
+    # spheres
+    sphere_inst: np.ndarray     # (S,) i32 instance id per sphere row, -1 pad
+    # instance bookkeeping
+    n_instances: int
+    instance_names: list
+
+
+@dataclass
+class InstRefitData:
+    """Static refit inputs of an instanced scene (flatten/instanced.py):
+    object-space geometry never moves under a transform edit, so the refit
+    recomputes the per-instance matrices, re-derives the world leaf boxes
+    from the static object leaf boxes and refits the world box tree
+    bottom-up with frozen topology. Scope: mesh-only, non-emissive scenes;
+    the flatten keeps the baked ``RefitData`` otherwise."""
+
+    obj_leaf_lo: np.ndarray     # (L, 3) object-space leaf boxes, BVH order
+    obj_leaf_hi: np.ndarray     # (L, 3)
+    leaf_inst: np.ndarray       # (L,) i32 instance id per leaf
+    child: np.ndarray           # (M*8,) i32 world-tree topology (frozen)
+    inst_packed: np.ndarray     # (I, INST_COLS) f32 baseline shading rows
+    mesh_scene_idx: np.ndarray  # (I,) i32 scene.shape_instances index
+    n_instances: int
+    instance_names: list

@@ -45,6 +45,10 @@ KERNELS = {
                     [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "bvh_anyhit": ("bvh_traverse", "launch_bvh_anyhit",
                    [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "bvh_closest_inst": ("bvh_traverse", "launch_bvh_closest_inst",
+                         [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P] * 5),
+    "bvh_anyhit_inst": ("bvh_traverse", "launch_bvh_anyhit_inst",
+                        [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P] * 3),
     "gather_planes": ("gather", "launch_gather_planes",
                       [_P, _I, _I, _P, _I, _P, _P]),
     "count_less": ("gather", "launch_count_less", [_P, _I, _P, _I, _P, _P]),

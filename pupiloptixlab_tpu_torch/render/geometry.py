@@ -4,8 +4,11 @@ Mirrors pupiloptixlab_tpu/render/geometry.py (GetHitLocalGeometry
 parity): barycentric normal/uv for triangles from one packed-attribute
 gather (with barycentrics recomputed by one Moller-Trumbore re-test of
 the winning triangle), analytic normals for spheres and round curves,
-and the twosided flip toward the viewer. Only the non-instanced branch
-is ported.
+and the twosided flip toward the viewer. Instanced tables hold
+object-space rows: the ray goes into the hit instance's space for the
+barycentrics, and the normal matrix, material and emitter base come from
+the instance's row (two more K3 gathers, of ``inst_w2o`` and
+``inst_packed``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from pupiloptixlab_tpu_torch.flatten.types import (
     CRV_R1,
     CRV_UV0,
     CRV_UV1,
+    INST_EMIT_BASE,
+    INST_MAT,
+    INST_W2O0,
     MAT_TWOSIDED,
     SPH_EMITTER,
     SPH_FLIP,
@@ -66,9 +72,10 @@ def get_local_geometry(
     instanced: bool = False,
     curve_count: int = 0,
 ) -> LocalGeometry:
-    """``sphere_count`` skips the sphere branch when 0 (-1: unknown)."""
-    if instanced:
-        raise NotImplementedError("instanced geometry: ROADMAP A.8 (instancing)")
+    """``sphere_count`` skips the sphere branch when 0 (-1: unknown).
+    ``instanced``: the attrs table holds unique OBJECT-space rows — normals
+    transform by the hit instance's normal matrix, material and emitter ids
+    come from the per-instance row (flatten/instanced.py)."""
     spheres = scene.spheres
     prim = hit.prim
     is_sphere = hit.kind == 1
@@ -82,7 +89,22 @@ def get_local_geometry(
     def vec(s: slice) -> Vec3:
         return Vec3(a[s.start], a[s.start + 1], a[s.start + 2])
 
-    _, _, bu, bv = _mt_planes(ro, rd, vec(TRI_P0), vec(TRI_E1), vec(TRI_E2))
+    # instanced rows are in object space: transform the ray first
+    # (barycentrics are affine-invariant)
+    ro_b, rd_b = ro, rd
+    if instanced:
+        w = gather_cols(scene.tris.inst_w2o, hit.inst)  # (12, N)
+        ro_b = Vec3(
+            w[0] * ro.x + w[1] * ro.y + w[2] * ro.z + w[3],
+            w[4] * ro.x + w[5] * ro.y + w[6] * ro.z + w[7],
+            w[8] * ro.x + w[9] * ro.y + w[10] * ro.z + w[11],
+        )
+        rd_b = Vec3(
+            w[0] * rd.x + w[1] * rd.y + w[2] * rd.z,
+            w[4] * rd.x + w[5] * rd.y + w[6] * rd.z,
+            w[8] * rd.x + w[9] * rd.y + w[10] * rd.z,
+        )
+    _, _, bu, bv = _mt_planes(ro_b, rd_b, vec(TRI_P0), vec(TRI_E1), vec(TRI_E2))
     is_tri = hit.kind == 0
     bu = torch.where(is_tri, bu, 0.0)
     bv = torch.where(is_tri, bv, 0.0)
@@ -95,8 +117,22 @@ def get_local_geometry(
         a[TRI_UV0.start] * w0 + a[TRI_UV1.start] * w1 + a[TRI_UV2.start] * w2,
         a[TRI_UV0.start + 1] * w0 + a[TRI_UV1.start + 1] * w1 + a[TRI_UV2.start + 1] * w2,
     )
-    mat_tri = a[TRI_MAT].to(torch.int32)
-    emit_tri = a[TRI_EMITTER].to(torch.int32)
+    if instanced:
+        ic = gather_cols(scene.tris.inst_packed, hit.inst)  # (16, N)
+        # object -> world normal: inverse-transpose 3x3 (flip folded in)
+        nrm_tri = Vec3(
+            ic[0] * nrm_tri.x + ic[1] * nrm_tri.y + ic[2] * nrm_tri.z,
+            ic[3] * nrm_tri.x + ic[4] * nrm_tri.y + ic[5] * nrm_tri.z,
+            ic[6] * nrm_tri.x + ic[7] * nrm_tri.y + ic[8] * nrm_tri.z,
+        )
+        mat_tri = ic[INST_MAT].to(torch.int32)
+        emit_base = ic[INST_EMIT_BASE].to(torch.int32)
+        f_orig = a[TRI_EMITTER].to(torch.int32)
+        emit_tri = torch.where((emit_base >= 0) & (f_orig >= 0), emit_base + f_orig, -1)
+        uv_tri = Vec2(uv_tri.x, torch.where(ic[INST_W2O0] > 0.5, 1.0 - uv_tri.y, uv_tri.y))
+    else:
+        mat_tri = a[TRI_MAT].to(torch.int32)
+        emit_tri = a[TRI_EMITTER].to(torch.int32)
     nrm_tri = nrm_tri.normalized()
 
     if sphere_count != 0:

@@ -5,16 +5,14 @@ CameraHelper + RenderObject + the GAS/IAS managers and EmitterHelper's
 dirty tracking of the original).
 
 There are no BLAS/TLAS handles to build or refit: the "acceleration
-structure" is the flattened world-space SoA (SceneData) on the world's
-device. The reference regenerates it on the device after an instance edit
-(flatten/refit.py); that module is not ported yet (ROADMAP A.8), so here
-a transform or visibility edit re-flattens the scene in full on the host,
-which the reference's own header describes as the same result: fresh
-tables with identical shapes. Dirty propagation mirrors the reference's
-event chains:
+structure" is the flattened SoA (SceneData) on the world's device. A new
+scene is flattened in full with its refit records; a transform or
+visibility edit afterwards refits the tables (flatten/refit.py, the
+IAS::Update analog) with identical shapes and no host re-flatten. Dirty
+propagation mirrors the reference's event chains:
 
   camera drag/wheel/keys -> CameraHelper dirty -> CAMERA_CHANGE
-  instance transform edit -> full re-flatten
+  instance transform edit -> device refit
                            -> RENDER_INSTANCE_UPDATE (passes reset accum)
 """
 
@@ -29,6 +27,7 @@ from pupiloptixlab_tpu_torch.flatten import (
     camera_block,
     flatten_scene,
 )
+from pupiloptixlab_tpu_torch.flatten.refit import refit_scene
 from pupiloptixlab_tpu_torch.flatten.types import CameraBlock, RenderConfig, SceneData
 from pupiloptixlab_tpu_torch.scene import Scene, load_scene
 from pupiloptixlab_tpu_torch.utils.camera import Camera, CameraDesc
@@ -106,6 +105,7 @@ class World:
         self._data: SceneData | None = None
         self._config: RenderConfig | None = None
         self._camera_block: CameraBlock | None = None
+        self._refit = None  # static instance/topology records of the refit
         self._instance_dirty = False  # transform/visibility edits only
         self._bind_canvas_events()
 
@@ -167,7 +167,8 @@ class World:
         ]
         self._scene_dirty = True
         self._camera_dirty = True
-        self._data = None   # new topology: full flatten
+        self._data = None   # new topology: full flatten, fresh refit records
+        self._refit = None
         self.events.dispatch(CAMERA_CHANGE)
 
     # -- render objects -------------------------------------------------------
@@ -182,8 +183,7 @@ class World:
         return None
 
     def _on_instance_update(self, index: int) -> None:
-        # instance-only edit: the reference refits on the device; here it
-        # re-flattens in full (ROADMAP A.8), see get_scene_data
+        # instance-only edit: eligible for the device refit
         self._instance_dirty = True
         self.events.dispatch(RENDER_INSTANCE_UPDATE, self._render_objects[index])
 
@@ -195,15 +195,21 @@ class World:
     def get_scene_data(self) -> tuple[SceneData, RenderConfig]:
         """Flattened device tables; rebuilt lazily when dirty.
 
-        A structural change (new scene, film or sensor edit) and an
-        instance edit (transform, visibility) both take the full host
-        flatten + BVH build: the device refit of the reference
-        (flatten/refit.py) is ROADMAP A.8. Hidden instances are
-        degenerated in place by the flatten, so the tables keep their
-        shapes either way."""
-        if self._scene_dirty or self._instance_dirty or self._data is None:
-            self._data, self._config = flatten_scene(self.scene, device=self.device)
+        A structural change (new scene, film or sensor edit) takes the full
+        host flatten + BVH build with the refit records (GAS build
+        analog). Transform and visibility edits afterwards take the refit
+        (flatten/refit.py): O(instances) bytes uploaded, then world rows,
+        BVH/chunk boxes and emitter CDFs regenerated on the device, or the
+        instance matrices and world boxes of instanced tables, with
+        identical shapes and no host re-flatten."""
+        if self._scene_dirty or self._data is None:
+            self._data, self._config, self._refit = flatten_scene(
+                self.scene, return_refit=True, device=self.device
+            )
             self._scene_dirty = False
+            self._instance_dirty = False
+        elif self._instance_dirty:
+            self._data = refit_scene(self._data, self._refit, self.scene)
             self._instance_dirty = False
         return self._data, self._config
 

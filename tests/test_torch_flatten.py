@@ -189,15 +189,23 @@ def test_pick_leaf_size_matches_reference():
 
 
 def test_instanced_scene_raises():
-    """A scene the reference would flatten into instanced tables is
-    refused (instancing is not ported) unless the baked path is asked for."""
+    """A scene the reference flattens into instanced tables (mesh_env with
+    its 20,480-triangle ball twice) no longer raises: both packages flatten
+    it into the same instanced tables (unique object-space rows, leaf
+    tables, per-instance matrices), and ``allow_instanced=False`` still
+    gives the baked world tables."""
     scene = load_scene(DATA / "mesh_env.xml")
     ball = next(i for i in scene.shape_instances if i.name == "Ball")
     twin = copy.copy(ball)
     twin.name = "Ball2"
     scene.shape_instances.append(twin)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        flatten_scene(scene, device="cpu")
+    td, tc = flatten_scene(scene, device="cpu")
+    jd, jc = jax_flatten(scene)
+    assert tc.instanced and dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for f in dataclasses.fields(jd.tris):
+        np.testing.assert_array_equal(getattr(td.tris, f.name).numpy(),
+                                      np.asarray(getattr(jd.tris, f.name)), err_msg=f.name)
+    assert tuple(td.tris.inst_w2o.shape) == (3, 12)
     td, tc = flatten_scene(scene, allow_instanced=False, device="cpu")
     jd, jc = jax_flatten(scene, allow_instanced=False)
     assert not tc.instanced and tc.tri_count == jc.tri_count

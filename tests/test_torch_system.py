@@ -17,9 +17,9 @@ relative MSE of 2.0e-5, so the film is not cut below the scene's own.)
   relative MSE <= 1e-5 and >= 99% of pixels within rtol 1e-4.
 
 The pass's ``sample_cnt`` / ``seed`` bookkeeping, the accumulation restarts
-on a camera event and on ``set_max_depth``, the instance-edit path (a full
-re-flatten in the port, a device refit in the reference), the display
-transfer and the refused display clients are held too.
+on a camera event and on ``set_max_depth``, the instance-edit path (a device
+refit in both), the display transfer and the refused display clients are
+held too.
 """
 
 from pathlib import Path
@@ -139,11 +139,11 @@ def test_events_restart_accumulation_in_both(pair):
     assert pair["torch"][1].seed == pair["jax"][1].seed
 
 
-def test_instance_edit_reflattens_to_the_reference_tables(pair):
-    """Moving and hiding an instance: the port re-flattens in full where
-    the reference refits on the device. The port's tables equal the
-    reference's own full flatten of the edited scene bit for bit, keep
-    their shapes, and agree with the refit's on every live triangle (the
+def test_instance_edit_refits_to_the_reference_tables(pair):
+    """Moving the light and hiding the floor: both worlds refit on the
+    device (flatten/refit.py) without a re-flatten. The port's tables keep
+    their shapes, equal the reference's refit tables bit for bit, and agree
+    with a full flatten of the edited scene on every live triangle (the
     refit keeps a hidden triangle's p0 and zeroes its edges; the flatten
     zeroes the whole row: both never hit)."""
     tables = {}
@@ -157,20 +157,22 @@ def test_instance_edit_reflattens_to_the_reference_tables(pair):
         assert pt._dirty
         system.world.get_render_object("Floor").set_visible(False)
         data, config = system.world.get_scene_data()
+        assert type(system.world._refit).__name__ == "RefitData"
         assert np.asarray(data.tris.packed).shape == np.asarray(before.tris.packed).shape
         assert config.tri_count == 4
         tables[name] = [np.asarray(t) for t in (
-            data.tris.packed, data.tris.chunk_boxes, data.emitters.packed)]
+            data.tris.packed, data.tris.chunk_boxes, data.emitters.packed,
+            data.emitters.select_cdf, data.spheres.attrs)]
+    for got, want in zip(tables["torch"], tables["jax"]):
+        np.testing.assert_array_equal(got, want)
     full, _ = jax_flatten(pair["jax"][0].world.scene)
-    for got, want in zip(tables["torch"], (full.tris.packed, full.tris.chunk_boxes,
-                                           full.emitters.packed)):
-        np.testing.assert_array_equal(got, np.asarray(want))
-    got, refit = tables["torch"][0], tables["jax"][0]
-    live = np.abs(refit[:, 3:9]).sum(axis=1) >= 1e-6
+    got = tables["torch"][0]
+    live = np.abs(got[:, 3:9]).sum(axis=1) >= 1e-6
     assert live.sum() == 2  # the light; the floor's two triangles are degenerate
-    np.testing.assert_allclose(got[live], refit[live], rtol=1e-6, atol=1e-6)
-    assert (np.abs(got[~live][:, 3:9]).sum(axis=1) < 1e-6).all()
-    np.testing.assert_allclose(tables["torch"][2], tables["jax"][2], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[live], np.asarray(full.tris.packed)[live],
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tables["torch"][2], np.asarray(full.emitters.packed),
+                               rtol=1e-6, atol=1e-6)
     for name in ("jax", "torch"):
         pair[name][0].world.get_render_object("Floor").set_visible(True)
 
@@ -233,6 +235,22 @@ def test_entry_points_default_to_the_card():
     for make in (System, World, BufferManager):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_profile_frame_busy_share_and_card_only():
+    """The frame profiler's busy time is the union of device intervals, and
+    without a CUDA device it raises instead of profiling the CPU."""
+    from pupiloptixlab_tpu_torch import profile_frame
+
+    assert profile_frame._busy_us([(10, 12), (0, 5), (3, 8)]) == 10.0
+    assert profile_frame._busy_us([]) == 0.0
+    assert profile_frame._short("void k<(4)>(float const*, int)") == "void k<(4)>"
+    assert profile_frame._short("(anonymous namespace)::g(int)") == "(anonymous namespace)::g"
+    assert profile_frame._short("Memcpy HtoD (Pageable -> Device)") == "Memcpy HtoD "
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        profile_frame.main(["scene.xml"])
 
 
 def test_buffer_manager_registry():
