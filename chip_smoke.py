@@ -79,6 +79,35 @@ Phases (each fails the run on its first fault; nothing is caught):
               refit without a flatten (counted), keep the instanced object
               tables as they are, and give a fresh flatten's tables on live
               rows; refit and fresh flatten are timed
+ 13. denoise  K9 (atrous_iter) alone on bench.py's inputs (seed 3: random colour
+              and albedo, unit normals) at 1920x1080, guided and unguided: each
+              of the 5 launches of a denoise against its plain version on the
+              same planes (atol 2e-6, rtol 1e-5) and the denoise against the
+              plain filter, timed per launch and per denoise (outside the
+              kernels line's sums); every other mode once at 256x144 on the
+              card against the same call on the CPU (variance, AOV, temporal
+              with motion, guided upscale, tiled; atol 1e-5, rtol 1e-5)
+ 14. mesh_env_denoise  System + PTPass + DenoisePass (USE_ALBEDO | USE_NORMAL,
+              5 iterations) on mesh_env at 1920x1080, depth 4: 1 warm-up + 2
+              frames without the denoiser, then 1 + 2 with it, the counts reset
+              before and read after (K9 must launch 5 times a frame, K1-K4
+              too); pt denoised against the plain filter on the same frame's
+              buffers (atol 2e-6, rtol 1e-5), its std below the noisy frame's
+              (tests/test_mesh_env.py:60-63); K9 on those buffers against its
+              plain version (the kernels line's K9 numbers); a 32x18 film
+              through System on the card against the CPU (phase 7's limits, on
+              pt denoised too)
+ 15. mesh_env_mt32  mesh_env flattened under PUPIL_TCL=32 with PUPIL_MXU_MT (the
+              port's intersect.MXU_MT) at 1920x1080: K10 (bvh_closest_mt) on
+              primary and bounce rays, rows equal and t bit-equal against its
+              plain version (the brute linear-form sweep) on 65,536-lane
+              subsets, and against K1 on the same tables at full N (lanes on
+              another row, or beyond rtol 3e-5 + atol 1e-5 on one row, the
+              reference's limits, <= 1e-4 of the hits; on every lane of one row
+              t within those limits plus the linear form's cancellation term,
+              compare_mt_k1); render_frame 1 warm-up + 2 timed with the
+              counts reset before and read after (K10 4 a frame, K1 none); the
+              frame against K1's at equal seed (phase 7's limits)
   9. no-jax   neither 'jax' nor any module of the JAX package is in sys.modules
 
 Each kernel's bound_ms is the least time the card could take for the timed
@@ -87,14 +116,17 @@ written once) over 3.35 TB/s and the float operations this run's rays need
 over 67 TFLOP/s (FP32 outside the tensor cores), both from the H100 SXM data
 sheet. For the traversals and the culled sweep the operations are a floor
 counted from this run's rays (the box tests every live ray must make and
-the one leaf or chunk every hit ray must test).
+the one leaf or chunk every hit ray must test). K9's operations are counted
+per tap (41 guided, 18 unguided) plus 10 per pixel, as csrc/atrous.cu says.
 
 In the {"kernels": [...]} line each kernel's ms, plain_ms, library_ms and
 bound_ms are sums over the timed calls at the shapes of the main paths it
 runs on, and its launches the sum over the runs of those same paths
 (launches_by_path has each run's own count): K1, K2 on the mesh_env BVH
 frame and the big_env frame; K3, K4 on all five runs; K5, K6 on the two
-chunk-sweep System runs; K7, K8 on the instanced System run. On big_env and
+chunk-sweep System runs; K7, K8 on the instanced System run; K9 on the
+mesh_env_denoise run (its 5 launches on that frame's buffers); K10 on the
+mesh_env_mt32 run (primary and bounce rays). On big_env and
 the instanced scene the plain versions are timed on the 65,536-lane subset
 they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
 
@@ -135,6 +167,17 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 MT_FLOPS_CLOSEST = 55       # per triangle test, the reference's cost estimates
 MT_FLOPS_ANY = 50           # (pallas_intersect.py:183, :366)
 SLAB_FLOPS = 22             # 6 sub/mul pairs + 10 min/max per box test
+MT_FLOPS_LINEAR = 87        # K10 per row: 4 ten-term dots (76), det guard and
+                            # division (3), the hit test's products and compares (8)
+ATROUS_TAP_FLOPS = {True: 41, False: 18}  # K9 per tap, guided / unguided (csrc/atrous.cu)
+ATROUS_PIXEL_FLOPS = 10     # centre luminance, the wsum guard, 1/wsum, 3 products
+MT_CANCEL_K = 16            # K10 against K1 on one row: the cancellation term's
+                            # count of float32 roundings (compare_mt_k1)
+MT_DUMP_LANES = 256         # lanes beyond the reference's t limits kept in the json
+DENOISE_ITERS = 5           # DenoisePass's default, as the reference's
+MODES_FILM = (256, 144)     # the denoiser's other modes, card against CPU
+MODES_TOL = dict(atol=1e-5, rtol=1e-5)  # cross-device: CPU and CUDA exp differ by
+                                        # an ulp or so, through 5 chained iterations
 
 _CSRC = "pupiloptixlab_tpu_torch/csrc/"
 _PALLAS = "pupiloptixlab_tpu/accel/"
@@ -153,6 +196,10 @@ KERNEL_META = {
                          _PALLAS + "pallas_bvh.py:298 (instanced=True, :304, :378)"),
     "bvh_anyhit_inst": (_CSRC + "bvh_traverse.cu",
                         _PALLAS + "pallas_bvh.py:747 (instanced=True, :753, :799)"),
+    "atrous_iter": (_CSRC + "atrous.cu", "pupiloptixlab_tpu/denoise/pallas_atrous.py:54 "
+                    "(_iter_kernel, via atrous_denoise_pallas :167)"),
+    "bvh_closest_mt": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:599 "
+                       "(_make_closest_kernel_mxu, via bvh_closest(mxu=True) :1144)"),
 }
 # the main-path runs whose launches each kernel is counted on
 ALL_PATHS = ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh", "big_env", "instanced")
@@ -165,6 +212,8 @@ PATHS_OF = {
     "sweep_anyhit": ("oracle_mat", "mesh_env_nobvh"),
     "bvh_closest_inst": ("instanced",),
     "bvh_anyhit_inst": ("instanced",),
+    "atrous_iter": ("mesh_env_denoise",),
+    "bvh_closest_mt": ("mesh_env_mt32",),
 }
 
 
@@ -219,15 +268,21 @@ def host_time_ms(fn) -> float:
 
 
 @contextlib.contextmanager
-def pupil_no_bvh(on: bool):
-    """PUPIL_NO_BVH=1 while a scene is flattened: the brute chunk sweep on a
-    BVH-scale scene, read by flatten_scene as the reference's flatten does."""
-    if on:
-        os.environ["PUPIL_NO_BVH"] = "1"
+def pupil_env(name: str, value: str | None):
+    """``name=value`` in the environment while a scene is flattened (nothing
+    for None), read by flatten_scene as the reference's flatten reads it:
+    PUPIL_NO_BVH=1 (the brute chunk sweep on a BVH-scale scene) or PUPIL_TCL
+    (the least leaf size)."""
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("PUPIL_NO_BVH", None)
+        os.environ.pop(name, None)
+
+
+def pupil_no_bvh(on: bool):
+    return pupil_env("PUPIL_NO_BVH", "1" if on else None)
 
 
 def load_tables(xml: Path, width: int, height: int, device, no_bvh: bool = False):
@@ -587,9 +642,10 @@ def phase_kernels(data, config, cam, results):
 BVH_PATH = ("bvh_closest", "bvh_anyhit", "gather_planes", "count_less")
 
 
-def phase_frame(data, config, cam, results, label="mesh_env"):
+def phase_frame(data, config, cam, results, label="mesh_env", path=BVH_PATH, absent=()):
     """render_frame at the tables' film: 1 warm-up + 2 timed frames, the
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after; every kernel of
+    ``path`` must launch, none of ``absent``."""
     import torch
 
     from pupiloptixlab_tpu_torch import kernels
@@ -620,8 +676,8 @@ def phase_frame(data, config, cam, results, label="mesh_env"):
         f"{dt * 1e3:.2f} ms/frame, {rays / dt / 1e6:.2f} Mray/s, mean {mean:.5f}, "
         f"peak {peak_gb:.2f} GB, launches over {1 + iters} frames {launches}")
     require(finite and mean > 0.0, f"{label}: frame is not finite and non-zero")
-    require(all(launches[k] > 0 for k in BVH_PATH),
-            f"{label}: a kernel of the BVH path was not launched: {launches}")
+    require(all(launches[k] > 0 for k in path) and all(launches[k] == 0 for k in absent),
+            f"{label}: the path must launch {path} and not {absent}: {launches}")
     results.setdefault("frames", {})[label] = {"ms_per_frame": dt * 1e3, "mrays_per_s": rays / dt / 1e6,
                         "warmup_ms": warm_ms, "mean": mean, "peak_gb": peak_gb,
                         "rays_per_frame": rays, "frames": 1 + iters,
@@ -1400,6 +1456,408 @@ def phase_refit(inst_xml, results):
     results["refit"] = out
 
 
+def denoise_inputs(width: int, height: int, device, seed: int = 3):
+    """bench.py:89-94's denoiser inputs: colour and albedo uniform in [0, 1),
+    unit normals, from a numpy seed; (h, w, 3) each."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    color = rs.rand(height, width, 3).astype(np.float32)
+    albedo = rs.rand(height, width, 3).astype(np.float32)
+    nr = rs.randn(height, width, 3).astype(np.float32)
+    nr /= np.maximum(np.linalg.norm(nr, axis=-1, keepdims=True), 1e-9)
+    return tuple(torch.from_numpy(x).to(device) for x in (color, albedo, nr))
+
+
+def plain_denoise(color, albedo, normal, guided: bool):
+    """The plain filter (the reference's _atrous_denoise_jnp) on the
+    tensors' device, at the denoiser's default sigmas."""
+    from pupiloptixlab_tpu_torch.denoise import atrous as ta
+
+    return ta._atrous_denoise(color, albedo, normal, None, (), DENOISE_ITERS, guided,
+                              guided, 0.35, 0.15, 0.25, 4.0)[0]
+
+
+def check_atrous(label, color, albedo, normal, guided, k9, bound):
+    """K9 at the 5 steps of a denoise of one (h, w, 3) image: each launch
+    against its plain version on the same input planes (atol 2e-6, rtol
+    1e-5) and timed beside it, then the 5-launch denoise against the plain
+    filter. The launch times, plain times and bounds add to ``k9`` and
+    ``bound``; returns the record."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.denoise import atrous_kernel as tk
+
+    flags = dict(use_albedo=guided, use_normal=guided)
+    a, n = tk.planes_of(albedo), tk.planes_of(normal)
+    x = tk.planes_of(color)
+    h, w = x.shape[1:]
+    rec = {"shape": [h, w], "guided": guided, "launch_ms": [], "plain_launch_ms": [],
+           "bound_ms": [], "max_abs_err": 0.0}
+    for it in range(DENOISE_ITERS):
+        step = 1 << it
+        got = tk.atrous_iter(x, a, n, step, **flags)
+        want = tk.atrous_iter_plain(x, a, n, step, **flags)
+        err = float((got - want).abs().max())
+        close = bool(torch.allclose(got, want, atol=2e-6, rtol=1e-5))
+        ms = cuda_time_ms(lambda: tk.atrous_iter(x, a, n, step, **flags), reps=5)
+        plain_ms = cuda_time_ms(lambda: tk.atrous_iter_plain(x, a, n, step, **flags), reps=2)
+        # colour in and out, plus the guide planes the flags compile in
+        planes = 3 + 3 * flags["use_albedo"] + 3 * flags["use_normal"] + 3
+        b_ms, by = bound.add(planes * 4 * h * w,
+                             h * w * (25 * ATROUS_TAP_FLOPS[guided] + ATROUS_PIXEL_FLOPS))
+        log(f"  K9 {label} step {step}: max |diff| {err:.3e}, kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({by})")
+        require(close, f"K9 {label} step {step}: kernel disagrees with its plain version")
+        rec["launch_ms"].append(ms)
+        rec["plain_launch_ms"].append(plain_ms)
+        rec["bound_ms"].append(b_ms)
+        rec["bound_by"] = by
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        x = want
+    got = tk.atrous_denoise_cuda(color, albedo, normal, **flags)
+    want = plain_denoise(color, albedo, normal, guided)
+    err = float((got - want).abs().max())
+    denoise_ms = cuda_time_ms(lambda: tk.atrous_denoise_cuda(color, albedo, normal, **flags),
+                              reps=3)
+    plain_ms = cuda_time_ms(lambda: plain_denoise(color, albedo, normal, guided), reps=1)
+    log(f"  K9 {label} denoise ({DENOISE_ITERS} launches): max |diff| {err:.3e} against the "
+        f"plain filter, {denoise_ms:.3f} ms, plain {plain_ms:.1f} ms")
+    require(bool(torch.allclose(got, want, atol=2e-6, rtol=1e-5)),
+            f"K9 {label}: the denoise disagrees with the plain filter")
+    rec.update(denoise_ms=denoise_ms, plain_denoise_ms=plain_ms, denoise_max_abs_err=err)
+    k9["ms"] += sum(rec["launch_ms"])
+    k9["plain_ms"] += sum(rec["plain_launch_ms"])
+    k9["max_abs_err"] = max(k9["max_abs_err"], rec["max_abs_err"], err)
+    k9.update(bound.fields())
+    return rec
+
+
+def phase_denoise_kernel(results):
+    """K9 alone on bench.py's inputs at 1920x1080, guided and unguided,
+    outside the kernels line's sums; then every other mode of the
+    denoiser once at 256x144 on the card against the same call on the CPU."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.denoise import Denoiser, DenoiserMode, denoise
+    from pupiloptixlab_tpu_torch.denoise import atrous as ta
+
+    out = {}
+    color, albedo, normal = denoise_inputs(*FILM, DEV)
+    scratch = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    for guided in (True, False):
+        out["guided" if guided else "unguided"] = check_atrous(
+            "bench " + ("guided" if guided else "unguided"), color, albedo, normal, guided,
+            scratch, Bound())
+    del color, albedo, normal
+
+    w, h = MODES_FILM
+    mode = DenoiserMode.USE_ALBEDO | DenoiserMode.USE_NORMAL
+    cases = {}
+    for dev in (DEV, "cpu"):
+        c, a, n = denoise_inputs(w, h, dev, seed=5)
+        c_prev, _, _ = denoise_inputs(w, h, dev, seed=6)
+        a_hi, n_hi = denoise_inputs(2 * w, 2 * h, dev, seed=7)[1:]
+        g = torch.Generator(device="cpu").manual_seed(8)
+        var = (torch.rand((h, w), generator=g) * 0.05).to(dev)
+        aov = torch.rand((h, w, 3), generator=g).to(dev)
+        motion = (torch.randn((h, w, 2), generator=g) * 3.0).to(dev)
+        res = {}
+        res["variance"] = ta.atrous_denoise(c, a, n, variance=var)
+        res["aov"], (res["aov_layer"],) = ta.atrous_denoise(c, a, n, aovs=(aov,))
+        res["temporal_motion"] = denoise(c, a, n, previous=c_prev,
+                                         mode=mode | DenoiserMode.TEMPORAL, motion=motion)
+        res["upscale_guided"] = denoise(c, a, n, mode=mode | DenoiserMode.UPSCALE_2X,
+                                        albedo_hi=a_hi, normal_hi=n_hi)
+        tiled = Denoiser(mode | DenoiserMode.TILED)
+        tiled.setup(w, h)
+        tiled.tile_size, tiled.overlap = 64, 16
+        res["tiled"] = tiled.execute({"input": c, "albedo": a, "normal": n})
+        cases[dev] = {k: v.cpu() for k, v in res.items()}
+    modes = {}
+    for name, got in cases[DEV].items():
+        want = cases["cpu"][name]
+        err = float((got - want).abs().max())
+        log(f"  denoiser {name} {w}x{h} {tuple(got.shape)}, card against CPU: max |diff| "
+            f"{err:.3e}")
+        require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                and bool(torch.allclose(got, want, **MODES_TOL)),
+                f"denoiser {name}: card and CPU disagree (atol 1e-5, rtol 1e-5)")
+        modes[name] = err
+    out["modes_max_abs_err"] = modes
+    results["denoise_kernel"] = out
+
+
+def phase_denoise_system(tmp, results, k9, bound):
+    """System + PTPass + DenoisePass on mesh_env at 1920x1080, depth 4:
+    frames without the denoiser, then with it (the counts set to 0 just
+    before and read just after); pt denoised against the plain filter on
+    the same frame's buffers; K9 on those buffers against its plain
+    version; a 32x18 film on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.passes import DenoisePass, PTPass
+    from pupiloptixlab_tpu_torch.system import System
+
+    system = System()
+    pt, dn = PTPass(), DenoisePass()
+    system.add_pass(pt)
+    system.add_pass(dn)
+    t0 = time.perf_counter()
+    require(system.set_scene(scene_copy(MESH_ENV, *FILM, tmp)), "mesh_env: set_scene failed")
+    load_s = time.perf_counter() - t0
+    config = pt._config
+    require(str(system.device).startswith("cuda") and config.bvh_nodes > 0
+            and not config.instanced and (config.width, config.height, config.max_depth)
+            == (*FILM, 4), "mesh_env_denoise: expected the BVH route at 1920x1080 depth 4")
+    n = config.width * config.height
+    rays = n * (1 + 2 * (config.max_depth - 1))
+
+    def frames(warm, iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(max_frames=warm)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        system.run(max_frames=iters)
+        torch.cuda.synchronize()
+        return warm_ms, (time.perf_counter() - t0) / iters * 1e3
+
+    dn.enabled = False
+    _, plain_frame_ms = frames(1, 2)
+    dn.enabled = True
+    warm, iters = 1, 2
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms, frame_ms = frames(warm, iters)
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_frame = launches["atrous_iter"] / (warm + iters)
+    dn_ms = cuda_time_ms(dn.on_run, reps=3)
+    log(f"  mesh_env_denoise: set_scene {load_s:.2f} s; without the denoiser "
+        f"{plain_frame_ms:.2f} ms/frame, with it {frame_ms:.2f} ms/frame "
+        f"({rays / frame_ms / 1e3:.2f} Mray/s; warm-up {warm_ms:.1f} ms), DenoisePass "
+        f"{dn_ms:.3f} ms a frame on the card, K9 {per_frame:g} launches a frame, peak "
+        f"{peak_gb:.2f} GB, launches over {warm + iters} frames {launches}")
+    require(launches["atrous_iter"] == DENOISE_ITERS * (warm + iters)
+            and all(launches[k] > 0 for k in BVH_PATH),
+            f"mesh_env_denoise: K9 must launch {DENOISE_ITERS} times a frame beside K1-K4: "
+            f"{launches}")
+    bm = system.buffers
+    h, w = config.height, config.width
+    color = bm["pt frame"].array[:, :3].reshape(h, w, 3).contiguous()
+    albedo = bm["pt albedo"].array.reshape(h, w, 3).contiguous()
+    normal = bm["pt normal"].array.reshape(h, w, 3).contiguous()
+    got = bm["pt denoised"].array.reshape(h, w, 3)
+    want = plain_denoise(color, albedo, normal, True)
+    err = float((got - want).abs().max())
+    std_in, std_out = float(color.std()), float(got.std())
+    log(f"  pt denoised against the plain filter on the same buffers: max |diff| {err:.3e}; "
+        f"std {std_in:.5f} -> {std_out:.5f}")
+    require(bool(torch.isfinite(got).all())
+            and bool(torch.allclose(got, want, atol=2e-6, rtol=1e-5)),
+            "mesh_env_denoise: pt denoised disagrees with the plain filter")
+    require(std_out < std_in, "mesh_env_denoise: denoising did not lower the std")
+    rec = {"set_scene_s": load_s, "ms_per_frame": frame_ms, "ms_per_frame_without": plain_frame_ms,
+           "denoise_pass_ms": dn_ms, "mrays_per_s": rays / frame_ms / 1e3,
+           "warmup_ms": warm_ms, "peak_gb": peak_gb, "frames": warm + iters,
+           "launches": launches, "k9_per_frame": per_frame, "vs_plain_max_abs_err": err,
+           "std_noisy": std_in, "std_denoised": std_out}
+    rec["k9"] = check_atrous("mesh_env frame", color, albedo, normal, True, k9, bound)
+    system.destroy()
+    del system, color, albedo, normal, got, want
+    torch.cuda.empty_cache()
+
+    # a 32x18 film on the card and on the CPU, two frames each
+    small = scene_copy(MESH_ENV, 32, 18, tmp)
+    seqs = {}
+    for dev in (DEV, "cpu"):
+        sysd = System(device=dev)
+        sysd.add_pass(PTPass())
+        sysd.add_pass(DenoisePass())
+        require(sysd.set_scene(small), "mesh_env 32x18: set_scene failed")
+        seqs[dev] = []
+        for _ in range(2):
+            sysd.run(max_frames=1)
+            seqs[dev].append({k.split()[1]: sysd.buffers[k].array.cpu().numpy().copy()
+                              for k in ("pt frame", "pt albedo", "pt normal", "pt test",
+                                        "pt denoised")})
+        sysd.destroy()
+    worst = {"rel_mse": 0.0, "frac_within_1e-4": 1.0, "normal_max": 0.0, "albedo_max": 0.0}
+    dworst = {"rel_mse": 0.0, "frac_within_1e-4": 1.0}
+    for i, (g, c) in enumerate(zip(seqs[DEV], seqs["cpu"])):
+        compare_frames(f"mesh_env_denoise 32x18 frame {i}", g, c, worst)
+        a, b = g["denoised"], c["denoised"]
+        rel = float(np.mean((a - b) ** 2) / max(np.mean(b ** 2), 1e-30))
+        frac = float(np.isclose(a, b, rtol=1e-4, atol=0.0).all(-1).mean())
+        log(f"  mesh_env_denoise 32x18 denoised {i}: rel MSE {rel:.3e}, pixels within rtol "
+            f"1e-4 {frac:.4f}")
+        require(rel <= 1e-5 and frac >= 0.99, "card and CPU denoised frames disagree")
+        dworst["rel_mse"] = max(dworst["rel_mse"], rel)
+        dworst["frac_within_1e-4"] = min(dworst["frac_within_1e-4"], frac)
+    rec["parity"], rec["parity_denoised"] = worst, dworst
+    results["mesh_env_denoise"] = rec
+    return launches
+
+
+@contextlib.contextmanager
+def matmul_form(on: bool):
+    """PUPIL_MXU_MT as the port reads it: into ``intersect.MXU_MT``, a
+    module constant taken from the environment at import (as the
+    reference's ``MXU_MT``), set here for the duration."""
+    from pupiloptixlab_tpu_torch.accel import intersect
+
+    old = intersect.MXU_MT
+    intersect.MXU_MT = on
+    try:
+        yield
+    finally:
+        intersect.MXU_MT = old
+
+
+MT_PATH = ("bvh_closest_mt", "bvh_anyhit", "gather_planes", "count_less")
+
+
+def compare_mt_k1(tri, center, planes, t_k, i_k, t1, i1) -> dict:
+    """K10 against K1 on the same rays and tables. ``rows_off``: lanes on
+    another row. On the lanes of one row, |t_K10 - t_K1| is held to the
+    reference's rtol 3e-5 + atol 1e-5 (tests/test_bvh.py:167-170) plus the
+    linear form's cancellation term
+        MT_CANCEL_K * u * (|o - c| + |p0 - c| + t |d|) * |e1| |e2| / |det|
+    with u = 2^-24: t*det = (o - c).N - (p0 - c).N and det = -d.N subtract
+    products of that size, each rounded in float32 (the recentring, each
+    component of N = e1 x e2, the 10-term sums), so a near, grazing hit
+    loses relative precision; Moller-Trumbore's t carries a term of the
+    same form. ``t_off`` counts the lanes beyond the reference's limits
+    alone, ``t_over`` those beyond the whole limit; each t_off lane is
+    returned in full (``t_off_lanes``, with the row, the centre and t in
+    float64 from the same float32 inputs) for tests/test_torch_mt.py."""
+    import torch
+
+    same = (i_k == i1) & (i1 >= 0)
+    lanes = torch.nonzero(same).squeeze(1)
+    o, d = (torch.stack([p[lanes] for p in planes[k:k + 3]], 1).double() for k in (0, 3))
+    row = tri[i1[lanes].long()]
+    p0, e1, e2 = (row[:, k:k + 3].double() for k in (0, 3, 6))
+    det = (e1 * torch.linalg.cross(d, e2)).sum(1)
+    t64 = (e2 * torch.linalg.cross(o - p0, e1)).sum(1) / det
+    c = center.double()
+    scale = (((o - c).norm(dim=1) + (p0 - c).norm(dim=1) + t64.abs() * d.norm(dim=1))
+             * e1.norm(dim=1) * e2.norm(dim=1) / det.abs())
+    tk, tc = t_k[lanes].double(), t1[lanes].double()
+    dt = (tk - tc).abs()
+    ref_lim = 1e-5 + 3e-5 * tc.abs()
+    lim = ref_lim + MT_CANCEL_K * 2.0 ** -24 * scale
+    off = dt > ref_lim
+    out = {"rows_off": int((i_k != i1).sum()), "t_off": int(off.sum()),
+           "t_over": int((dt > lim).sum()),
+           "max_dt_over_limit": float((dt / lim).max()) if lanes.numel() else 0.0,
+           "max_rel_dt_same_row": float((dt / tc.abs()).max()) if lanes.numel() else 0.0}
+    if out["t_off"]:
+        k = torch.nonzero(off).squeeze(1)[:MT_DUMP_LANES]
+        out["t_off_k10_err_f64"] = float((tk[off] - t64[off]).abs().max())
+        out["t_off_k1_err_f64"] = float((tc[off] - t64[off]).abs().max())
+        out["center"] = [float(x) for x in center]
+        out["t_off_lanes"] = [{
+            "o": [float(x) for x in o[j]], "d": [float(x) for x in d[j]],
+            "tmin": float(planes[6][lanes[j]]), "tmax": float(planes[7][lanes[j]]),
+            "row": int(i1[lanes[j]]), "tri": [float(x) for x in row[j, 0:9]],
+            "t_k10": float(tk[j]), "t_k1": float(tc[j]), "t_f64": float(t64[j]),
+            "limit": float(lim[j])} for j in k.tolist()]
+    return out
+
+
+def phase_mt32(results, k10, bound):
+    """mesh_env flattened under PUPIL_TCL=32 at 1920x1080 with PUPIL_MXU_MT:
+    K10 against its plain version on 65,536-lane subsets and against K1 on
+    the same tables at full N; render_frame with the counts set to 0 just
+    before and read just after; the frame against K1's at equal seed."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.accel.intersect import uses_mt
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+
+    with pupil_env("PUPIL_TCL", "32"):
+        data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
+    tris = data.tris
+    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    kw = dict(tcl=config.bvh_tcl, depth=tris.bvh_depth)
+    with matmul_form(True):
+        route = uses_mt(tris, config)
+    log(f"  mesh_env under PUPIL_TCL=32: {tris.packed.shape[0]} rows, tcl {config.bvh_tcl}, "
+        f"{config.bvh_nodes} nodes, depth {tris.bvh_depth}; linear-form route {route}")
+    require(config.bvh_tcl == 32 and route, "mesh_env_mt32: expected the linear-form route")
+    n = config.width * config.height
+    lanes = pick_lanes(n, tris.packed.device)
+    rec = {"rows": tris.packed.shape[0], "bvh_nodes": config.bvh_nodes,
+           "bvh_depth": tris.bvh_depth, "calls": {}}
+    with matmul_form(True):
+        rays = main_path_rays(data, config, cam)
+        for label in ("primary", "bounce"):
+            full = planes_of(rays[label])
+            t_k, i_k = bt.bvh_closest_mt(*full, *tabs, **kw)
+            sub = planes_of(rays[label], lanes)
+            (t_p, i_p), plain_ms = host_timed(lambda: bt.plain_closest_mt(*sub, tris.packed))
+            mism = int((i_k[lanes] != i_p).sum())
+            bit_t = bool(torch.equal(t_k[lanes], t_p))
+            hit = i_p >= 0
+            err = float((t_k[lanes][hit] - t_p[hit]).abs().max()) if bool(hit.any()) else 0.0
+            ms = cuda_time_ms(lambda: bt.bvh_closest_mt(*full, *tabs, **kw), reps=5)
+            # K1 on the same tables and rays at full N
+            t1, i1 = bt.bvh_closest(*full, *tabs, **kw)
+            k1_ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *tabs, **kw), reps=5)
+            hits1 = int((i1 >= 0).sum())
+            vs_k1 = compare_mt_k1(tris.packed, bt.mt_tables(tris.packed)[1], full, t_k,
+                                  i_k, t1, i1)
+            live = int((full[7] > full[6]).sum())
+            b_ms, by = bound.add(nbytes(*full, *tabs, t_k, i_k),
+                                 live * 8 * SLAB_FLOPS
+                                 + int((i_k >= 0).sum()) * config.bvh_tcl * MT_FLOPS_LINEAR)
+            log(f"  K10 {label}: {int(hit.sum())}/{lanes.numel()} hits, row mismatches {mism}, "
+                f"t bit-equal {bit_t}; kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms "
+                f"at N={lanes.numel()}, bound {b_ms:.4f} ms ({by}); against K1 (tcl 32, "
+                f"{k1_ms:.3f} ms) of {hits1} hits: "
+                f"{ {k: v for k, v in vs_k1.items() if k != 't_off_lanes'} }")
+            require(mism == 0 and bit_t, f"K10 {label}: kernel disagrees with its plain version")
+            require(vs_k1["rows_off"] + vs_k1["t_off"] <= 1e-4 * hits1,
+                    f"K10 {label}: disagrees with K1 on more than 1e-4 of the hits (row, or t "
+                    "beyond rtol 3e-5 + atol 1e-5)")
+            require(vs_k1["t_over"] == 0,
+                    f"K10 {label}: t beyond the linear form's cancellation limit on "
+                    f"{vs_k1['t_over']} lanes of one row")
+            rec["calls"][label] = {
+                "ms": ms, "plain_ms": plain_ms, "plain_n": lanes.numel(), "bound_ms": b_ms,
+                "bound_by": by, "hits": int(hit.sum()), "mismatches": mism, "k1_ms": k1_ms,
+                "hits_k1": hits1, "vs_k1": vs_k1}
+            k10["ms"] += ms
+            k10["plain_ms"] += plain_ms
+            k10["max_abs_err"] = max(k10["max_abs_err"], err)
+            k10["mismatches"] += mism
+        k10.update(bound.fields())
+        del rays
+        launches = phase_frame(data, config, cam, results, label="mesh_env_mt32",
+                               path=MT_PATH, absent=("bvh_closest",))
+    # the frame against K1's on the same tables at equal seed
+    bufs = {}
+    for on in (True, False):
+        with matmul_form(on):
+            accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+            _, b = render_frame(data, cam, 0, 0, accum, config)
+            bufs[on] = {k: v.cpu().numpy().copy() for k, v in b.items()}
+    worst = {"rel_mse": 0.0, "frac_within_1e-4": 1.0, "normal_max": 0.0, "albedo_max": 0.0}
+    compare_frames("mesh_env_mt32 frame against K1's, seed 0", bufs[True], bufs[False], worst)
+    rec["vs_k1_frame"] = worst
+    results["mesh_env_mt32"] = rec
+    del data
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (REPO / "pupiloptixlab_tpu_torch").is_dir():
         print("chip_smoke.py: the pupiloptixlab_tpu_torch package is not beside "
@@ -1470,6 +1928,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         log("[refit] instance edits through World on the card")
         phase_refit(inst_xml, results)
+        torch.cuda.empty_cache()
+        ks = results["kernels"]
+        for name in ("atrous_iter", "bvh_closest_mt"):
+            ks[name] = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "mismatches": 0,
+                        "library_ms": None}
+        with torch.inference_mode():
+            log("[denoise] K9 alone on bench.py's inputs at 1920x1080; the other modes of "
+                "the denoiser, card against CPU")
+            phase_denoise_kernel(results)
+            log("[denoise] System + PTPass + DenoisePass on mesh_env at 1920x1080, depth 4")
+            runs["mesh_env_denoise"] = phase_denoise_system(Path(tmp), results,
+                                                            ks["atrous_iter"], Bound())
+            torch.cuda.empty_cache()
+            log("[mt32] mesh_env under PUPIL_TCL=32 PUPIL_MXU_MT=1 at 1920x1080 on K10")
+            runs["mesh_env_mt32"] = phase_mt32(results, ks["bvh_closest_mt"], Bound())
     torch.cuda.empty_cache()
     log("[parity] card vs CPU, BVH vs chunk sweep")
     phase_parity(results)

@@ -16,6 +16,7 @@ id 0 (the root) with a never-hit point box at 1e30. Node 0 is the root.
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass
 
@@ -27,6 +28,10 @@ import numpy as np
 _SMEM_BUDGET_BYTES = 160 * 1024
 _NODE_SMEM_BYTES = 9 * 4
 _MAX_NODES = _SMEM_BUDGET_BYTES // _NODE_SMEM_BYTES
+# Triangle tables above this many bytes take the reference's streamed TPU
+# traversal (pallas_bvh.STREAM_TRI_BYTES), which prefers 32-row leaves at
+# flatten time and never runs the matmul-form leaf test (accel/intersect.py).
+STREAM_TRI_BYTES = 8 * 1024 * 1024
 
 
 @dataclass
@@ -41,7 +46,13 @@ class BvhArrays:
 
 def pick_leaf_size(t_pad: int, min_tcl: int = 16) -> int:
     """Smallest leaf size (>= min_tcl, doubling) whose 8-ary node count
-    fits the node budget (internal nodes ~= n_leaves / 7)."""
+    fits the node budget (internal nodes ~= n_leaves / 7). ``PUPIL_TCL``
+    overrides ``min_tcl``, read here as the reference's pick_leaf_size
+    reads it, so that one environment gives both packages one tree (and
+    ``PUPIL_TCL=32`` the 32-row leaves of the matmul-form leaf test)."""
+    env = os.environ.get("PUPIL_TCL")
+    if env:
+        min_tcl = int(env)
     tcl = min_tcl
     while True:
         n_leaves = max((t_pad + tcl - 1) // tcl, 1)

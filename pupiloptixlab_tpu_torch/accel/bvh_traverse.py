@@ -7,6 +7,7 @@ argument order as its ``bvh_closest`` and ``bvh_anyhit``. Kernels
   bvh_anyhit       (K2) <- _make_anyhit_kernel, resident and stream=True
   bvh_closest_inst (K7) <- _make_closest_kernel(instanced=True)
   bvh_anyhit_inst  (K8) <- _make_anyhit_kernel(instanced=True)
+  bvh_closest_mt   (K10) <- _make_closest_kernel_mxu (bvh_closest(mxu=True))
 The TPU streams triangle tables above 8 MB through a DMA ring; K1/K2 read
 every table from device memory, so one kernel serves both.
 
@@ -18,14 +19,25 @@ leaf in table order with the ray mapped into the leaf's instance space,
 as the reference's ``_sweep_tris_xla_instanced`` does: ties at equal t go
 to the lowest world leaf, then the lowest row. The kernels return exactly
 those results, bit for bit.
+
+K10 walks K1's tree (32-row leaves) but tests each leaf through the
+reference's linear form (``mt_cols_table``): det, u*det, v*det and t*det
+are 10-term dots of the ray's feature vector [d, (o-c) x d, o-c, 1] with
+each row's table columns, summed left to right, and t = (t*det) / det in
+IEEE division. Its plain version (``plain_closest_mt``) is the brute
+linear-form sweep over every row in the same arithmetic, elementwise (not
+through a matrix product, whose summation order is the library's), with
+ties at equal t going to the lowest row; K10 returns exactly that.
 """
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from pupiloptixlab_tpu_torch import kernels
-from pupiloptixlab_tpu_torch.accel.sweep import _PAIR_BUDGET, MAX_DISTANCE, mt_hit_t
+from pupiloptixlab_tpu_torch.accel.sweep import _DET_EPS, _PAIR_BUDGET, MAX_DISTANCE, mt_hit_t
 from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_anyhit as plain_anyhit
 from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_closest as plain_closest
 
@@ -257,3 +269,163 @@ def bvh_anyhit_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, bvh_child, bv
     kernels.check(rc, "bvh_anyhit_inst")
     _raise_on_flag("bvh_anyhit_inst", err)
     return occ
+
+
+MT_TCL = 32  # rows per leaf of the linear-form table (one 128-lane slice on the TPU)
+
+
+def _cross(a, b):
+    """Component planes of a x b, each as a1*b2 - a2*b1."""
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _mt_linear(tri, center):
+    """(T, 4, 10) linear-form rows [det | u*det | v*det | t*det] of every
+    triangle, recentred on ``center`` (see ``mt_cols_table``)."""
+    p0 = [tri[:, k] - center[k] for k in range(3)]
+    e1 = [tri[:, 3 + k] for k in range(3)]
+    e2 = [tri[:, 6 + k] for k in range(3)]
+    n = _cross(e1, e2)
+    zero = torch.zeros_like(p0[0])
+    p0n = p0[0] * n[0] + p0[1] * n[1] + p0[2] * n[2]
+    g_det = [-n[0], -n[1], -n[2]] + [zero] * 7
+    g_u = list(_cross(p0, e2)) + e2 + [zero] * 4
+    g_v = [-c for c in _cross(p0, e1)] + [-c for c in e1] + [zero] * 4
+    g_t = [zero] * 6 + list(n) + [-p0n]
+    return torch.stack([torch.stack(g, 1) for g in (g_det, g_u, g_v, g_t)], 1)
+
+
+def mt_center(tri):
+    """The recentring point of the linear form: the mean of the rows' p0."""
+    return tri[:, 0:3].mean(dim=0)
+
+
+def mt_cols_table(tri, center):
+    """(T, 12) rows -> the reference's (10, 4T) linear-form table
+    (``_mt_cols_table``, pallas_bvh.py:259-295). With the ray's feature
+    f = [d, (o - c) x d, o - c, 1] and N = e1 x e2, p0c = p0 - c:
+        det     = f . [-N, 0, 0, 0]
+        u * det = f . [p0c x e2, e2, 0, 0]
+        v * det = f . [-(p0c x e1), -e1, 0, 0]
+        t * det = f . [0, 0, N, -(p0c . N)]
+    Columns are leaf-grouped: leaf L's 128 columns are [det x 32 | u x 32 |
+    v x 32 | t x 32]. T must be a multiple of 32."""
+    t = tri.shape[0]
+    g = _mt_linear(tri, center)  # (T, 4, 10)
+    g = g.reshape(t // MT_TCL, MT_TCL, 4, 10).permute(0, 2, 1, 3)
+    return g.reshape(4 * t, 10).t().contiguous()
+
+
+def mt_rows_table(tri, center):
+    """The same numbers in the layout K10 reads: (T, 40), row j holding
+    [det(10) | u(10) | v(10) | t(10)] of triangle j, 160 B per row."""
+    return _mt_linear(tri, center).reshape(tri.shape[0], 40).contiguous()
+
+
+_MT_TABLES: dict[int, tuple] = {}  # id(tri) -> (rows, center), while tri lives
+
+
+def mt_tables(tri):
+    """(``mt_rows_table``, ``mt_center``) of one triangle table, built at its
+    first closest-hit query and kept beside it until it is freed. Tables
+    are never written in place (a refit builds new ones: flatten/refit.py),
+    so the tensor's identity names its contents."""
+    key = id(tri)
+    hit = _MT_TABLES.get(key)
+    if hit is None:
+        center = mt_center(tri)
+        hit = (mt_rows_table(tri, center), center)
+        _MT_TABLES[key] = hit
+        weakref.finalize(tri, _MT_TABLES.pop, key, None)
+    return hit
+
+
+def _mt_features(rox, roy, roz, rdx, rdy, rdz, center):
+    """The ray's 10 features [d, (o - c) x d, o - c, 1] as planes."""
+    rc = (rox - center[0], roy - center[1], roz - center[2])
+    d = (rdx, rdy, rdz)
+    return [*d, *_cross(rc, d), *rc, torch.ones_like(rox)]
+
+
+def mt_linear_hit_t(f, tmn, tmx, g):
+    """t where a ray hits a row through the linear form, 1e16 elsewhere, on
+    broadcast-compatible planes: ``f`` the 10 ray features, ``g`` the 40
+    row columns. Each dot is summed left to right over its 10 terms, and
+    the test is the reference's (pallas_bvh.py:660-689) with IEEE
+    t = (t*det) / det. K10 repeats these operations in this order."""
+    def dot(base):
+        acc = f[0] * g[base]
+        for k in range(1, 10):
+            acc = acc + f[k] * g[base + k]
+        return acc
+
+    det, up, vp, tp = dot(0), dot(10), dot(20), dot(30)
+    t = tp / torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
+    ok = ((torch.abs(det) >= _DET_EPS) & (up * det >= 0.0) & (vp * det >= 0.0)
+          & ((det - up - vp) * det >= 0.0) & (t > tmn) & (t < tmx))
+    return torch.where(ok, t, MAX_DISTANCE)
+
+
+def plain_closest_mt(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri):
+    """Plain version of K10: the closest linear-form hit (t, row) of every
+    ray over every row of ``tri``, in chunks of at most ``_PAIR_BUDGET``
+    pairs; ties at equal t go to the lowest row, a miss is (1e16, -1)."""
+    n = rox.shape[0]
+    dev = rox.device
+    tbest = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
+    ibest = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    live = torch.nonzero(tmax > tmin).squeeze(1)
+    n_tris = tri.shape[0]
+    if live.numel() == 0 or n_tris == 0:
+        return tbest, ibest
+    rows, center = mt_tables(tri)
+    cols = [rows[:, k] for k in range(40)]
+    r_chunk = max(min(live.numel(), _PAIR_BUDGET // 64), 1)
+    for rs in range(0, live.numel(), r_chunk):
+        lanes = live[rs:rs + r_chunk]
+        ray = [a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)]
+        f = _mt_features(*ray[:6], center)
+        bt = torch.full((lanes.numel(),), MAX_DISTANCE, dtype=torch.float32, device=dev)
+        bi = torch.full((lanes.numel(),), -1, dtype=torch.int32, device=dev)
+        t_chunk = max(_PAIR_BUDGET // lanes.numel(), 8)
+        for ts in range(0, n_tris, t_chunk):
+            t = mt_linear_hit_t(f, ray[6], ray[7], [c[ts:ts + t_chunk][None, :] for c in cols])
+            tj, j = torch.min(t, dim=1)  # first (lowest) index among ties
+            better = tj < bt
+            bt = torch.where(better, tj, bt)
+            bi = torch.where(better, (j + ts).to(torch.int32), bi)
+        tbest[lanes] = bt
+        ibest[lanes] = bi
+    return tbest, ibest
+
+
+def bvh_closest_mt(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+                   tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = MT_TCL, depth: int = 1):
+    """Closest-hit traversal with the linear-form leaf test (the reference's
+    ``bvh_closest(mxu=True)``); returns (t, idx) with (1e16, -1) on a miss.
+    Needs 32-row leaves; the linear-form table is built from ``tri`` at its
+    first query and kept (``mt_tables``), where the reference builds it on
+    each call."""
+    planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
+    if tcl != MT_TCL or tri.shape[0] % MT_TCL:
+        raise ValueError(f"bvh_closest_mt: needs {MT_TCL}-row leaves over a multiple of "
+                         f"{MT_TCL} rows, got tcl {tcl} over {tri.shape[0]} rows")
+    if tri.device.type == "cpu":
+        return plain_closest_mt(*planes, tri)
+    n, n_nodes = _check_args("bvh_closest_mt", planes, tri, bvh_child, bvh_axis,
+                             bvh_boxes, tcl, depth)
+    rows, center = mt_tables(tri)
+    t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
+    i_out = torch.empty(n, dtype=torch.int32, device=tri.device)
+    err = torch.zeros(1, dtype=torch.int32, device=tri.device)
+    fn = kernels.launcher("bvh_closest_mt")
+    kernels.LAUNCHES["bvh_closest_mt"] += 1
+    rc = fn(*(p.data_ptr() for p in planes), rows.data_ptr(), center.data_ptr(),
+            bvh_child.data_ptr(), bvh_axis.data_ptr(), bvh_boxes.data_ptr(), n,
+            tri.shape[0], tcl, n_nodes, t_out.data_ptr(), i_out.data_ptr(),
+            err.data_ptr(), kernels.stream_ptr(tri.device))
+    kernels.check(rc, "bvh_closest_mt")
+    _raise_on_flag("bvh_closest_mt", err)
+    return t_out, i_out

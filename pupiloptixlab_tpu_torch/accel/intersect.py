@@ -11,6 +11,14 @@ through ``sweep_closest`` / ``sweep_anyhit`` (accel/sweep.py). Each
 wrapper launches its CUDA kernel for tables on the card and runs its
 plain version for tables on the CPU.
 
+``PUPIL_MXU_MT`` (read into ``MXU_MT`` at import, as the reference reads
+it) sends closest-hit queries to the linear-form leaf test
+``bvh_closest_mt`` (K10) under the reference's own rule
+(pallas_bvh.py:1144): 32-row leaves (``PUPIL_TCL=32`` at flatten time), a
+baked (not instanced) tree, and a triangle table of at most
+``STREAM_TRI_BYTES``. Every other closest-hit query, and every any-hit
+query, takes the kernels above.
+
 The reference's ray sort (``_sorted_ray_sweep``, ``origin_sort_prim``)
 only permutes lanes for TPU tile coherence and is left out: results are
 the same per lane.
@@ -18,15 +26,19 @@ the same per lane.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
 
+from pupiloptixlab_tpu_torch.accel import bvh as _bvh
 from pupiloptixlab_tpu_torch.accel.bvh_traverse import (
+    MT_TCL,
     bvh_anyhit,
     bvh_anyhit_inst,
     bvh_closest,
     bvh_closest_inst,
+    bvh_closest_mt,
 )
 from pupiloptixlab_tpu_torch.accel.sweep import sweep_anyhit, sweep_closest
 from pupiloptixlab_tpu_torch.flatten.types import (
@@ -41,6 +53,17 @@ from pupiloptixlab_tpu_torch.render.sampling import MAX_DISTANCE
 from pupiloptixlab_tpu_torch.render.vec import Vec3
 
 _DET_EPS = 1e-12
+# the matmul-form leaf test of the BVH route (intersect.py:45 of the reference)
+MXU_MT = bool(os.environ.get("PUPIL_MXU_MT"))
+
+
+def uses_mt(tris, config: RenderConfig) -> bool:
+    """Whether closest-hit queries take K10: the reference's rule for its
+    matmul-form kernel (``mxu`` and ``tcl == 32``, resident, not instanced)."""
+    packed = tris.packed
+    resident = packed.shape[0] * packed.shape[1] * 4 <= _bvh.STREAM_TRI_BYTES
+    return (MXU_MT and config.bvh_nodes > 0 and config.bvh_tcl == MT_TCL
+            and not config.instanced and resident)
 
 
 @dataclass
@@ -88,7 +111,8 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
             torch.where(hit, inst, 0),
         )
     if config.bvh_nodes > 0:
-        t, idx = bvh_closest(
+        closest = bvh_closest_mt if uses_mt(tris, config) else bvh_closest
+        t, idx = closest(
             *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
             tcl=config.bvh_tcl, depth=tris.bvh_depth,
         )

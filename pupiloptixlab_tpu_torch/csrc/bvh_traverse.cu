@@ -9,6 +9,8 @@
 //                              via bvh_anyhit
 //   launch_bvh_closest_inst <- _make_closest_kernel(instanced=True)
 //   launch_bvh_anyhit_inst  <- _make_anyhit_kernel(instanced=True)
+//   launch_bvh_closest_mt   <- _make_closest_kernel_mxu (bvh_closest(mxu=True),
+//                              pallas_bvh.py:599), via bvh_closest_mt
 //
 // What it computes: per ray, over the 8-wide BVH of accel/bvh.py (child ids
 // with leaves encoded as -(id+1), one split axis per node, 8 child boxes of
@@ -27,6 +29,14 @@
 // boxes tested with the world ray.
 //   K7: closest (t, unique row, world leaf); a miss writes (1e16, -1, -1).
 //   K8: the any-hit flag.
+// Linear-form leaves (K10, baked tables with 32-row leaves): the tree and
+// the result are K1's, but each row is tested through the reference's
+// linear form (_mt_cols_table): det, u*det, v*det and t*det are 10-term dots
+// of the ray's features f = [d, (o-c) x d, o-c, 1] (c: the mean of the rows'
+// p0, computed once per call) with the row's 40 table floats, laid out
+// [det(10) | u(10) | v(10) | t(10)] per row (accel/bvh_traverse.py
+// mt_rows_table); a hit needs |det| >= 1e-12, u*det*det >= 0, v*det*det >= 0,
+// (det-u-v)*det >= 0 and tmin < t < tmax with t = (t*det) / det.
 //
 // Design. The TPU kernel walks a 1024-ray TILE through the tree together
 // because the TPU has no per-lane control flow; Hopper does, so here each
@@ -35,7 +45,8 @@
 // flatten records). Children are pushed far-to-near by the ray's own
 // direction sign along the node's split axis (children are stored sorted
 // along it), so the near child pops first. One templated body serves the
-// baked and instanced forms (kInst), so the two share the traversal loop.
+// baked, instanced (kInst) and linear-form (kLinear) closest-hit forms, so
+// all three share the traversal loop.
 //
 // Bounds on the card: traversal is latency-bound on dependent loads of node
 // boxes (32 B) and leaf rows (48 B) plus divergence between the rays of a
@@ -47,6 +58,17 @@
 // boxes), so one kernel serves both sizes. The instanced unique table is
 // small (the 64-instance scene: 396 KB) and stays in L2. Sorting secondary
 // rays for coherence is left to later, measured work.
+//
+// K10's design. The TPU runs the leaf test as one (10,128) x (10,N) product
+// on its matrix unit. Here K1's per-thread walk serves (one leaf-test policy
+// of the same templated body), and each thread sums its 4 dots left to right
+// in FP32 on the CUDA cores: 40 multiplies, 36 adds and one division per row
+// against ~50 operations for the classic test, with 160 B of table per row
+// instead of 48 (the mesh_env table, 3.3 MB, stays in L2). A tensor-core form
+// (a warp-level mma over a leaf's 128 x 10 block, with a split that keeps f32
+// accuracy) is later work. The reference takes an approximate reciprocal and
+// one Newton step for 1/det (pallas_bvh.py:673-675); this kernel divides in
+// IEEE, so t equals the plain linear-form sweep bit for bit.
 //
 // Exactness. The slab test (ray_tests.cuh) is exactly _slab8 with tfar
 // clamped by the running best t, and the leaf test is _mt_planes with IEEE
@@ -81,6 +103,41 @@ struct InstTables {
   int n_leaves;
 };
 
+// The linear-form table of K10 (unused by the other forms).
+struct LinearTable {
+  const float4* rows;   // (T, 40) as 10 float4 per row
+  const float* center;  // (3,) recentring point
+};
+
+// The linear-form test of one row: the four dots summed left to right over
+// their 10 terms (unfused under -fmad=false), as mt_linear_hit_t.
+__device__ __forceinline__ bool linear_form(const float4* __restrict__ row,
+                                            const float (&f)[10], const Ray& r,
+                                            float* t_out) {
+  float g[40];
+#pragma unroll
+  for (int q = 0; q < 10; ++q) {
+    const float4 v = __ldg(row + q);
+    g[4 * q] = v.x;
+    g[4 * q + 1] = v.y;
+    g[4 * q + 2] = v.z;
+    g[4 * q + 3] = v.w;
+  }
+  float d[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float acc = f[0] * g[10 * m];
+#pragma unroll
+    for (int k = 1; k < 10; ++k) acc = acc + f[k] * g[10 * m + k];
+    d[m] = acc;
+  }
+  const float det = d[0], up = d[1], vp = d[2], tp = d[3];
+  const float t = tp / (fabsf(det) < kDetEps ? kDetEps : det);
+  *t_out = t;
+  return fabsf(det) >= kDetEps && up * det >= 0.0f && vp * det >= 0.0f &&
+         (det - up - vp) * det >= 0.0f && t > r.tmn && t < r.tmx;
+}
+
 __device__ __forceinline__ int baked_start(int id, int t_rows, int tcl) {
   // clamp_leaf of the reference: rows [start, start + tcl) stay in the table
   const int s = -(id + 1);
@@ -109,7 +166,7 @@ __device__ __forceinline__ Ray to_object(const Ray& r, const float* __restrict__
   return o;
 }
 
-template <bool kInst>
+template <bool kInst, bool kLinear>
 __global__ void __launch_bounds__(kThreads)
 bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -117,12 +174,24 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ tmin, const float* __restrict__ tmax,
                    const float4* __restrict__ tri, const int* __restrict__ child,
                    const int* __restrict__ axis, const float4* __restrict__ boxes,
-                   const InstTables it, int n, int t_rows, int tcl, int n_nodes,
-                   float* __restrict__ t_out, int* __restrict__ i_out,
-                   int* __restrict__ l_out, int* __restrict__ err) {
+                   const InstTables it, const LinearTable lt, int n, int t_rows,
+                   int tcl, int n_nodes, float* __restrict__ t_out,
+                   int* __restrict__ i_out, int* __restrict__ l_out,
+                   int* __restrict__ err) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
+  float f[10];  // K10: the ray's features [d, (o-c) x d, o-c, 1]
+  if constexpr (kLinear) {
+    const float rcx = r.ox - __ldg(lt.center);
+    const float rcy = r.oy - __ldg(lt.center + 1);
+    const float rcz = r.oz - __ldg(lt.center + 2);
+    f[0] = r.dx; f[1] = r.dy; f[2] = r.dz;
+    f[3] = rcy * r.dz - rcz * r.dy;
+    f[4] = rcz * r.dx - rcx * r.dz;
+    f[5] = rcx * r.dy - rcy * r.dx;
+    f[6] = rcx; f[7] = rcy; f[8] = rcz; f[9] = 1.0f;
+  }
   float tbest = kMaxDistance;
   int ibest = -1;
   int lbest = -1;  // world leaf of the best hit (instanced form)
@@ -154,6 +223,17 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
               tbest = t;
               ibest = s + j;
               lbest = li;
+            }
+          }
+        } else if constexpr (kLinear) {
+          const int s = baked_start(id, t_rows, tcl);
+          for (int j = 0; j < tcl; ++j) {
+            float t;
+            const int row = s + j;
+            if (linear_form(lt.rows + (size_t)row * 10, f, r, &t) &&
+                (t < tbest || (t == tbest && row < ibest))) {
+              tbest = t;
+              ibest = row;
             }
           }
         } else {
@@ -254,11 +334,11 @@ extern "C" int launch_bvh_closest(
     int n, int t_rows, int tcl, int n_nodes, float* t_out, int* i_out, int* err,
     cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<false, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
-        n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, err);
+        LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -287,11 +367,11 @@ extern "C" int launch_bvh_closest_inst(
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     float* t_out, int* i_out, int* l_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<true, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
-        InstTables{leaf_start, leaf_inst, w2o, n_leaves},
+        InstTables{leaf_start, leaf_inst, w2o, n_leaves}, LinearTable{nullptr, nullptr},
         n, t_rows, tcl, n_nodes, t_out, i_out, l_out, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -311,6 +391,22 @@ extern "C" int launch_bvh_anyhit_inst(
         reinterpret_cast<const float4*>(boxes),
         InstTables{leaf_start, leaf_inst, w2o, n_leaves},
         n, t_rows, tcl, n_nodes, occ_out, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_bvh_closest_mt(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* mt_rows, const float* center, const int* child, const int* axis,
+    const float* boxes, int n, int t_rows, int tcl, int n_nodes, float* t_out,
+    int* i_out, int* err, cudaStream_t stream) {
+  if (n > 0) {
+    bvh_closest_kernel<false, true><<<blocks_for(n), kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax, nullptr, child, axis,
+        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        LinearTable{reinterpret_cast<const float4*>(mt_rows), center},
+        n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
 }

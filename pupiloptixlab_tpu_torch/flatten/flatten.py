@@ -35,7 +35,12 @@ from pupiloptixlab_tpu_torch.scene.shapes import ShapeType
 from pupiloptixlab_tpu_torch.scene.textures import Texture, TextureType
 from pupiloptixlab_tpu_torch.utils.camera import Camera, CameraDesc
 from pupiloptixlab_tpu_torch.utils.math import transform_normals, transform_points
-from pupiloptixlab_tpu_torch.accel.bvh import build_bvh, bvh_depth, pick_leaf_size
+from pupiloptixlab_tpu_torch.accel.bvh import (
+    STREAM_TRI_BYTES,
+    build_bvh,
+    bvh_depth,
+    pick_leaf_size,
+)
 from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.flatten.types import (
     N_SLOTS,
@@ -54,11 +59,6 @@ from pupiloptixlab_tpu_torch.flatten.types import (
     TextureTable,
     TriSoup,
 )
-
-# Triangle tables above this many bytes take the reference's streamed
-# TPU traversal, which prefers 32-row leaves (pallas_bvh.STREAM_TRI_BYTES;
-# the port keeps the leaf-size rule so both packages build the same tree).
-STREAM_TRI_BYTES = 8 * 1024 * 1024
 
 _DTYPES = {
     np.dtype(np.float64): torch.float32,

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> (source stem, C launcher symbol, ctypes argtypes)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "bvh_closest": ("bvh_traverse", "launch_bvh_closest",
                     [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
@@ -49,6 +49,8 @@ KERNELS = {
                          [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P] * 5),
     "bvh_anyhit_inst": ("bvh_traverse", "launch_bvh_anyhit_inst",
                         [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P] * 3),
+    "bvh_closest_mt": ("bvh_traverse", "launch_bvh_closest_mt",
+                       [_P] * 8 + [_P] * 5 + [_I] * 4 + [_P] * 4),
     "gather_planes": ("gather", "launch_gather_planes",
                       [_P, _I, _I, _P, _I, _P, _P]),
     "count_less": ("gather", "launch_count_less", [_P, _I, _P, _I, _P, _P]),
@@ -56,6 +58,8 @@ KERNELS = {
                       [_P] * 8 + [_P, _P, _P, _I, _I, _I, _P, _P, _P]),
     "sweep_anyhit": ("sweep", "launch_sweep_anyhit",
                      [_P] * 8 + [_P, _P, _P, _I, _I, _I, _P, _P]),
+    "atrous_iter": ("atrous", "launch_atrous_iter",
+                    [_P] * 4 + [_I] * 5 + [_F, _F, _I, _F, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

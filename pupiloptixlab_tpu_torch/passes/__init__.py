@@ -1,1 +1,2 @@
+from pupiloptixlab_tpu_torch.passes.denoise import DenoisePass  # noqa: F401
 from pupiloptixlab_tpu_torch.passes.pt import PTPass  # noqa: F401

@@ -187,8 +187,10 @@ def test_unported_options_raise(change):
 def test_port_never_imports_jax():
     """In a fresh interpreter the port loads mesh_env with its own scene
     layer, flattens it, renders one 128x8 frame, and steps a System with a
-    PTPass on oracle_mat, all on the CPU, importing neither jax nor any
-    module of the JAX package. It runs with JAX_PLATFORMS=cpu set, which
+    PTPass and a DenoisePass on oracle_mat (the denoiser and the matmul-form
+    leaf test's modules come in through them), all on the CPU, importing
+    neither jax nor any module of the JAX package. It runs with
+    JAX_PLATFORMS=cpu set, which
     makes the JAX package's __init__ import jax: the stricter of the two
     environments."""
     code = textwrap.dedent(f"""
@@ -196,7 +198,7 @@ def test_port_never_imports_jax():
         sys.path.insert(0, {str(REPO)!r})
         import torch
         from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
-        from pupiloptixlab_tpu_torch.passes import PTPass
+        from pupiloptixlab_tpu_torch.passes import DenoisePass, PTPass
         from pupiloptixlab_tpu_torch.render.integrator import render_frame
         from pupiloptixlab_tpu_torch.scene import load_scene
         from pupiloptixlab_tpu_torch.system import System
@@ -208,10 +210,12 @@ def test_port_never_imports_jax():
         assert bool(torch.isfinite(acc).all()) and float(acc.mean()) > 0
         system = System(device="cpu")
         system.add_pass(PTPass())
+        system.add_pass(DenoisePass())
         assert system.set_scene({str(DATA / "oracle_mat.xml")!r})
         system.run(max_frames=2)
         frame = system.buffers["pt frame"].array
         assert system.passes[0].sample_cnt == 2 and float(frame.mean()) > 0
+        assert bool(torch.isfinite(system.buffers["pt denoised"].array).all())
         foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                          or m == "pupiloptixlab_tpu" or m.startswith("pupiloptixlab_tpu."))
         assert not foreign, foreign
