@@ -108,6 +108,26 @@ Phases (each fails the run on its first fault; nothing is caught):
               compare_mt_k1); render_frame 1 warm-up + 2 timed with the
               counts reset before and read after (K10 4 a frame, K1 none); the
               frame against K1's at equal seed (phase 7's limits)
+ 16. parallel (a) K1 and K2 on the seeded deep soup of scene/deep_soup.py (20,000
+              triangles, a depth-11 tree whose walk may need 78 stack entries)
+              at 65,536 rays, equal to their plain versions (rows equal, t
+              bit-equal, flags equal), with the deepest stack the walk
+              reached; (b) K11 (bvh_closest(count_iters=True)) on mesh_env's
+              1080p primary rays: t/idx bit-equal to K1 at full N, counts
+              equal to plain_closest_counts on 64 whole tiles, timed in turns
+              with K1, and the spread of the tiles' pops; (c) tile_costs and
+              balanced_tile_perm for 1 and 3 ranks, render_frame with each
+              permutation bit-equal to the frame without one (1080p, depth
+              4), the counts set to 0 just before and read just after (K11
+              and K1-K4 must launch); (d) render_frame_sharded,
+              render_frame_balanced and render_samples_sharded over an NCCL
+              group of world size 1, equal to the single-device calls, and
+              ring_closest_bvh and ring_closest (K5 inner) equal to K1's t;
+              (e) the ring's rounds at D = 4 in one process on big_env's
+              table (phase 10) with 1080p primary rays, through K1 on each
+              shard's own tree and through K5: t bit-equal to K1 over the
+              whole table, rows off only on exact ties of t across shards
+              (<= 1e-4 of the hits)
   9. no-jax   neither 'jax' nor any module of the JAX package is in sys.modules
 
 Each kernel's bound_ms is the least time the card could take for the timed
@@ -126,7 +146,9 @@ runs on, and its launches the sum over the runs of those same paths
 frame and the big_env frame; K3, K4 on all five runs; K5, K6 on the two
 chunk-sweep System runs; K7, K8 on the instanced System run; K9 on the
 mesh_env_denoise run (its 5 launches on that frame's buffers); K10 on the
-mesh_env_mt32 run (primary and bounce rays). On big_env and
+mesh_env_mt32 run (primary and bounce rays); K11 on the mesh_env_balanced
+run (phase 16c: one launch per balance refresh, timed on the 1080p primary
+rays, its plain version on the 64 tiles it is compared on). On big_env and
 the instanced scene the plain versions are timed on the 65,536-lane subset
 they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
 
@@ -200,6 +222,9 @@ KERNEL_META = {
                     "(_iter_kernel, via atrous_denoise_pallas :167)"),
     "bvh_closest_mt": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:599 "
                        "(_make_closest_kernel_mxu, via bvh_closest(mxu=True) :1144)"),
+    "bvh_closest_count": (_CSRC + "bvh_traverse.cu", _PALLAS + "pallas_bvh.py:298 "
+                          "(_make_closest_kernel(count_iters=True), :514-590, via "
+                          "bvh_closest(count_iters=True) :1126-1137)"),
 }
 # the main-path runs whose launches each kernel is counted on
 ALL_PATHS = ("mesh_env_bvh", "oracle_mat", "mesh_env_nobvh", "big_env", "instanced")
@@ -214,6 +239,7 @@ PATHS_OF = {
     "bvh_anyhit_inst": ("instanced",),
     "atrous_iter": ("mesh_env_denoise",),
     "bvh_closest_mt": ("mesh_env_mt32",),
+    "bvh_closest_count": ("mesh_env_balanced",),
 }
 
 
@@ -351,28 +377,13 @@ def main_path_rays(data, config, cam, seed: int = 0):
     from pupiloptixlab_tpu_torch.render import bsdf as bsdf_mod
     from pupiloptixlab_tpu_torch.render import emitter as emitter_mod
     from pupiloptixlab_tpu_torch.render import rng
-    from pupiloptixlab_tpu_torch.render.camera import generate_rays, generate_rays_for
     from pupiloptixlab_tpu_torch.render.geometry import get_local_geometry
-    from pupiloptixlab_tpu_torch.render.integrator import _block_pix, _use_blocks
-    from pupiloptixlab_tpu_torch.render.sampling import (
-        MAX_DISTANCE, RAY_OFFSET, is_zero, to_local, to_world,
-    )
+    from pupiloptixlab_tpu_torch.render.integrator import lane_pixels, primary_rays
+    from pupiloptixlab_tpu_torch.render.sampling import RAY_OFFSET, is_zero, to_local, to_world
 
-    w, h = config.width, config.height
-    n = w * h
-    dev = data.tris.packed.device
-    if _use_blocks(config):
-        pix = _block_pix(w, h, dev)
-        state = rng.tea_init(pix, seed)
-        state, (jx, jy) = rng.next_floats(state, 2)
-        ro, rd = generate_rays_for(cam, w, h, pix, jx, jy)
-    else:
-        state = rng.tea_init(torch.arange(n, dtype=torch.int64, device=dev), seed)
-        state, (jx, jy) = rng.next_floats(state, 2)
-        ro, rd = generate_rays(cam, w, h, jx, jy)
-    tmin = torch.full((n,), RAY_OFFSET, dtype=torch.float32, device=dev)
-    tmax = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
-    primary = (ro, rd, tmin, tmax)
+    pix = lane_pixels(config, device=data.tris.packed.device)
+    state, primary = primary_rays(cam, config, seed, pix)
+    ro, rd, tmin, tmax = primary
 
     hit = intersect_closest(ro, rd, tmin, tmax, data, config)
     geo = get_local_geometry(data, hit, ro, rd, config.sphere_count,
@@ -806,6 +817,7 @@ def phase_sweep(mesh_bvh, bounds, results):
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
     from pupiloptixlab_tpu_torch.accel import sweep as sw
+    from pupiloptixlab_tpu_torch.render.camera import generate_rays
 
     k5 = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "mismatches": 0,
           "library_ms": None}
@@ -855,7 +867,12 @@ def phase_sweep(mesh_bvh, bounds, results):
     bvh_data, bvh_config = mesh_bvh
     bt_tabs = (bvh_data.tris.packed, bvh_data.tris.bvh_child, bvh_data.tris.bvh_axis,
                bvh_data.tris.bvh_boxes)
-    for label in ("primary", "bounce"):
+    # and on unjittered primary rays, 1,080 of which run along the plane
+    # x = 0 with a zero x direction (box faces of both tables lie in it)
+    zero = torch.zeros(n, device=DEV)
+    rays["unjittered"] = (*generate_rays(cam, config.width, config.height, zero, zero),
+                          *rays["primary"][2:])
+    for label in ("primary", "bounce", "unjittered"):
         full = planes_of(rays[label])
         t5, i5 = sw.sweep_closest(*full, tris.packed, tris.chunk_boxes, tris.super_boxes)
         t1, i1 = bt.bvh_closest(*full, *bt_tabs, tcl=bvh_config.bvh_tcl,
@@ -1084,7 +1101,8 @@ def table_bytes(tris) -> dict:
 
 def phase_big_env(tmp, bounds, results):
     """Phase 10: big_env at 1920x1080 on K1/K2 at leaf size 32, and its
-    48x48 oracle gate."""
+    48x48 oracle gate. Returns the run's launches and the 1080p tables
+    (for phase 16's ring rounds, run right after this phase)."""
     import dataclasses
 
     import numpy as np
@@ -1154,9 +1172,7 @@ def phase_big_env(tmp, bounds, results):
     rec["oracle"] = {"mean_ratio": mean_ratio, "rel_mse": rel_mse, "box_rel_mse": box_rel,
                      "spp": 128, "seconds": secs}
     results["big_env"] = rec
-    del data
-    torch.cuda.empty_cache()
-    return launches
+    return launches, (data, config, cam)
 
 
 def check_inst_traversal(data, config, rays, lanes, out, bounds):
@@ -1858,6 +1874,334 @@ def phase_mt32(results, k10, bound):
     return launches
 
 
+PAR_TILES = 64       # whole 1024-lane tiles K11's counts are held on (65,536 lanes)
+RING_SHARDS = 4      # simulated ranks of phase 16's ring rounds
+BALANCED_PATH = ("bvh_closest_count", "bvh_closest", "bvh_anyhit", "gather_planes",
+                 "count_less")
+
+
+def primary_planes(config, cam, seed: int = 0):
+    """The frame's primary rays in its lane order at ``seed`` as ray planes
+    (render_sample's and balance.tile_costs's)."""
+    from pupiloptixlab_tpu_torch.render.integrator import lane_pixels, primary_rays
+
+    return planes_of(primary_rays(cam, config, seed, lane_pixels(config, device=DEV))[1])
+
+
+def ties_only(planes, tri, t, rows_a, rows_b) -> dict:
+    """Lanes where two closest-hit results give other rows at bit-equal t:
+    each is an exact tie when both rows hit the ray at that t."""
+    from pupiloptixlab_tpu_torch.accel.sweep import mt_hit_t
+
+    off = (rows_a != rows_b).nonzero().squeeze(1)
+    if off.numel() == 0:
+        return {"rows_off": 0, "ties": 0}
+    ray = [p[off] for p in planes]
+
+    def t_of(rows):
+        cols = tri[rows[off].clamp(min=0).long()]
+        return mt_hit_t(*ray, [cols[:, k] for k in range(9)])
+
+    tie = (rows_a[off] >= 0) & (rows_b[off] >= 0) & (t_of(rows_a) == t[off]) & (
+        t_of(rows_b) == t[off])
+    return {"rows_off": int(off.numel()), "ties": int(tie.sum())}
+
+
+def check_face_lanes(cam, config, tabs, kw) -> dict:
+    """K1, K2 and K11 on unjittered primary rays (some run along box
+    faces) against their plain versions: the lanes with a zero direction
+    component, then seeded lanes up to ``SUBSET`` (whole count tiles)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.render.camera import generate_rays
+    from pupiloptixlab_tpu_torch.render.sampling import MAX_DISTANCE, RAY_OFFSET
+
+    n = config.width * config.height
+    zero = torch.zeros(n, device=DEV)
+    ro, rd = generate_rays(cam, config.width, config.height, zero, zero)
+    full = planes_of((ro, rd, torch.full((n,), RAY_OFFSET, device=DEV),
+                      torch.full((n,), MAX_DISTANCE, device=DEV)))
+    on_face = ((full[3] == 0) | (full[4] == 0) | (full[5] == 0)).nonzero().squeeze(1)
+    rest = pick_lanes(n, DEV)
+    rest = rest[~torch.isin(rest, on_face)][:SUBSET - on_face.numel()]
+    lanes = torch.cat([on_face, rest])
+    sub = [p[lanes].contiguous() for p in full]
+    t1, i1 = bt.bvh_closest(*sub, *tabs, **kw)
+    occ = bt.bvh_anyhit(*sub, *tabs, **kw)
+    t11, i11, c11 = bt.bvh_closest(*sub, *tabs, **kw, count_iters=True)
+    t_p, i_p = bt.plain_closest(*sub, tabs[0])
+    occ_p = bt.plain_anyhit(*sub, tabs[0])
+    t_w, i_w, c_w = bt.plain_closest_counts(*sub, *tabs, kw["tcl"])
+    f = {"lanes": lanes.numel(), "on_face": on_face.numel(),
+         "face_hits": int((i_p[:on_face.numel()] >= 0).sum()), "hits": int((i_p >= 0).sum()),
+         "k1_t_off": int((t1 != t_p).sum()), "k1_rows_off": int((i1 != i_p).sum()),
+         "k2_flags_off": int((occ != occ_p).sum()),
+         "k11_lanes_off": int(((t11 != t1) | (i11 != i1)).sum()),
+         "walk_lanes_off": int(((t_w != t_p) | (i_w != i_p)).sum()),
+         "k11_counts_off": int((c11 != c_w).sum())}
+    log(f"  (b2) unjittered rays, {f['on_face']} along box faces: {f}")
+    require(on_face.numel() > 0 and f["face_hits"] > 0
+            and all(v == 0 for k, v in f.items() if k.endswith("_off")),
+            "K1, K2 and K11 must equal their plain versions on rays along box faces")
+    return f
+
+
+def frame_copy(bufs) -> dict:
+    return {k: v.clone() for k, v in bufs.items()}
+
+
+def frames_equal(a, b) -> bool:
+    import torch
+
+    return all(bool(torch.equal(a[k], b[k])) for k in ("frame", "albedo", "normal", "test"))
+
+
+def phase_parallel(tmp, results, k11, bound):
+    """Phase 16 (a)-(d): the deep soup (C.1), K11 on mesh_env at 1080p and
+    on rays along box faces, the balanced frame, and the distributed code
+    at world size 1 over NCCL. (e) is ``phase_ring_rounds``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.parallel import balance, ring_sweep, sharding
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame, render_sample
+    from pupiloptixlab_tpu_torch.scene.deep_soup import soup_rays, soup_tables
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    # (a) the deep soup: a depth-11 tree, beyond a 64-entry stack
+    soup = soup_tables(device=DEV)
+    tabs = (soup["tri"], soup["child"], soup["axis"], soup["boxes"])
+    kw = dict(tcl=soup["tcl"], depth=soup["depth"])
+    planes = soup_rays(soup["tri"], SUBSET)
+    t1, i1 = bt.bvh_closest(*planes, *tabs, **kw)
+    occ = bt.bvh_anyhit(*planes, *tabs, **kw)
+    t_p, i_p = bt.plain_closest(*planes, soup["tri"])
+    occ_p = bt.plain_anyhit(*planes, soup["tri"])
+    _, _, pops, _, deepest = bt.tree_walk(*planes, *tabs, soup["tcl"])
+    need = 7 * soup["depth"] + 1
+    a = {"rows": soup["tri"].shape[0], "nodes": soup["n_nodes"], "depth": soup["depth"],
+         "stack_bound": need, "deepest": deepest, "max_pops": int(pops.max()),
+         "hits": int((i_p >= 0).sum()), "rows_off": int((i1 != i_p).sum()),
+         "t_bit_equal": bool(torch.equal(t1, t_p)), "flags_off": int((occ != occ_p).sum())}
+    log(f"  (a) deep soup: {a['rows']} rows, {a['nodes']} nodes, depth {a['depth']} (stack "
+        f"bound {need} > 64: {need > 64}; fits {bt.STACK_SIZE}: {bt.stack_fits(a['depth'])}), "
+        f"deepest stack the walk reached {deepest}, most pops of a ray {a['max_pops']}; "
+        f"K1 {a['hits']}/{SUBSET} hits, rows off {a['rows_off']}, t bit-equal "
+        f"{a['t_bit_equal']}; K2 flags off {a['flags_off']}")
+    require(need > 64 and bt.stack_fits(a["depth"]) and a["rows_off"] == 0
+            and a["t_bit_equal"] and a["flags_off"] == 0,
+            "deep soup: K1/K2 must walk the depth-11 tree and equal their plain versions")
+    rec["deep_soup"] = a
+    del soup, tabs, planes
+
+    # (b) K11 on mesh_env's primary rays at 1080p
+    data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
+    tris = data.tris
+    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    kw = dict(tcl=config.bvh_tcl, depth=tris.bvh_depth)
+    n = config.width * config.height
+    full = primary_planes(config, cam)
+    t1, i1 = bt.bvh_closest(*full, *tabs, **kw)
+    t11, i11, c11 = bt.bvh_closest(*full, *tabs, **kw, count_iters=True)
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    tiles = torch.randperm(n // bt.COUNT_TILE, generator=gen)[:PAR_TILES].sort().values.to(DEV)
+    lanes = (tiles[:, None] * bt.COUNT_TILE + torch.arange(bt.COUNT_TILE, device=DEV)).reshape(-1)
+    sub = [p[lanes].contiguous() for p in full]
+    (t_w, i_w, c_w), plain_ms = host_timed(lambda: bt.plain_closest_counts(*sub, *tabs,
+                                                                           config.bvh_tcl))
+    # K11 against K1 at full N, and its counts and lanes against the plain
+    # walk on the subset's whole tiles
+    err = {"t_vs_k1": float((t11 - t1).abs().max()),
+           "idx_off_k1": int((i11 != i1).sum()),
+           "counts_max_abs_err": int((c11[tiles] - c_w).abs().max()),
+           "counts_off": int((c11[tiles] != c_w).sum()),
+           "t_vs_walk": float((t11[lanes] - t_w).abs().max()),
+           "lanes_off_walk": int(((t11[lanes] != t_w) | (i11[lanes] != i_w)).sum())}
+    bit = bool(torch.equal(t11, t1)) and bool(torch.equal(i11, i1))
+    counts_equal = bool(torch.equal(c_w, c11[tiles]))
+    walk_equal = bool(torch.equal(t_w, t11[lanes])) and bool(torch.equal(i_w, i11[lanes]))
+    k1_ms, k11_ms = [], []
+    for count in (False, True, True, False):  # in turns: K1, K11, K11, K1
+        (k11_ms if count else k1_ms).append(cuda_time_ms(
+            lambda: bt.bvh_closest(*full, *tabs, **kw, count_iters=count), reps=5))
+    ms, ms1 = float(np.mean(k11_ms)), float(np.mean(k1_ms))
+    live = int((full[7] > full[6]).sum())
+    b_ms, by = bound.add(nbytes(*full, *tabs, t11, i11, c11),
+                         live * 8 * SLAB_FLOPS + int((i11 >= 0).sum()) * config.bvh_tcl
+                         * MT_FLOPS_CLOSEST)
+    costs = c11[:, 0].double().cpu().numpy()
+    q = np.percentile(costs, [0, 25, 50, 75, 100])
+    spread = {"max_over_mean": float(costs.max() / costs.mean()),
+              "quartiles": [float(x) for x in q], "mean": float(costs.mean()),
+              "leaves_mean": float(c11[:, 1].double().mean())}
+    log(f"  (b) K11 mesh_env primary N={n}: t/idx bit-equal to K1 {bit}; counts on "
+        f"{PAR_TILES} tiles equal to plain_closest_counts {counts_equal} (walk t/idx equal "
+        f"{walk_equal}; {err}); K11 {ms:.3f} ms ({k11_ms}) against K1 {ms1:.3f} ms ({k1_ms}), "
+        f"plain {plain_ms:.1f} ms at N={lanes.numel()}, bound {b_ms:.4f} ms ({by}); tile "
+        f"pops {spread}")
+    require(bit and counts_equal and walk_equal,
+            "K11 disagrees with K1 or with plain_closest_counts")
+    k11.update(ms=ms, plain_ms=plain_ms, plain_n=lanes.numel(), k1_ms=ms1, k11_runs=k11_ms,
+               k1_runs=k1_ms,
+               max_abs_err=max(err["t_vs_k1"], err["t_vs_walk"], err["counts_max_abs_err"]),
+               mismatches=err["idx_off_k1"] + err["counts_off"] + err["lanes_off_walk"],
+               **bound.fields())
+    rec["k11"] = {"k1_ms": ms1, "ms": ms, "bound_ms": b_ms, "bound_by": by,
+                  "plain_ms": plain_ms, "spread": spread, "errors": err}
+    del full, sub, t1, i1, t11, i11, t_w, i_w
+
+    # (b2) unjittered primary rays, among them 1,080 whose x direction is
+    # exactly 0 in the plane x = 0 that mesh_env's boxes have a face in:
+    # those lanes and the rest of a seeded subset, K1, K2 and K11 against
+    # the brute sweep and the plain walk
+    rec["faces"] = check_face_lanes(cam, config, tabs, kw)
+
+    # (c) the balanced frame on mesh_env at 1080p, depth 4
+    def frame(perm=None):
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+        (_, bufs), f_ms = host_timed(lambda: render_frame(data, cam, 0, 0, accum, config,
+                                                           tile_perm=perm))
+        return frame_copy(bufs), f_ms
+
+    ref, ref_ms = frame()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    costs = balance.tile_costs(data, cam, config)
+    perms = {1: balance.balanced_tile_perm(costs, 1), 3: balance.balanced_tile_perm(costs, 3)}
+    got = {d: frame(p) for d, p in perms.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    sums3 = costs[perms[3]].reshape(3, -1).sum(1)
+    contiguous3 = costs.reshape(3, -1).sum(1)
+    c = {"frame_ms": ref_ms, "permuted_ms": {d: g[1] for d, g in got.items()},
+         "bit_equal": {d: frames_equal(g[0], ref) for d, g in got.items()},
+         "perm1_descending": bool((np.diff(costs[perms[1]]) <= 0).all()),
+         "balanced3_max_over_mean": float(sums3.max() / sums3.mean()),
+         "contiguous3_max_over_mean": float(contiguous3.max() / contiguous3.mean()),
+         "launches": launches}
+    log(f"  (c) balanced frame: {c}")
+    require(all(c["bit_equal"].values()) and c["perm1_descending"],
+            "the permuted frames must equal the frame without a permutation")
+    require(all(launches[k] > 0 for k in BALANCED_PATH),
+            f"mesh_env_balanced must launch {BALANCED_PATH}: {launches}")
+    rec["balanced"] = c
+
+    # (d) the distributed code at world size 1 over NCCL
+    group = sharding.make_mesh(1, device=DEV, init_method=f"file://{tmp / 'nccl_store'}",
+                               rank=0)
+    try:
+        sdata = sharding.shard_scene(data, group)
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+        _, b_sh = sharding.render_frame_sharded(group, sdata, cam, 0, 0, accum, config)
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+        _, b_bal = balance.render_frame_balanced(group, sdata, cam, 0, 0, accum, config,
+                                                 perms[3])
+        samples = sharding.render_samples_sharded(group, sdata, cam, 0, config)
+        single = render_sample(data, cam, 0, config)["radiance"]
+        full = primary_planes(config, cam)
+        t1, i1 = bt.bvh_closest(*full, *tabs, **kw)
+        ro_flat, rd_flat = torch.stack(full[0:3]), torch.stack(full[3:6])
+        ring = ring_sweep.build_ring_bvh(tris.packed, 1)
+        t_rb, i_rb = ring_sweep.ring_closest_bvh(group, ro_flat, rd_flat, full[6], full[7],
+                                                 ring)
+        table, shard_rows = ring_sweep.shard_tris(tris.packed, 1)
+        t_rs, i_rs = ring_sweep.ring_closest(group, ro_flat, rd_flat, full[6], full[7],
+                                             table, shard_rows, inner="kernel")
+    finally:
+        dist.destroy_process_group()
+    dd = {"sharded_bit_equal": frames_equal(b_sh, ref),
+          "balanced_bit_equal": frames_equal(b_bal, ref),
+          "samples_bit_equal": bool(torch.equal(samples, single)),
+          "ring_bvh_t_bit_equal": bool(torch.equal(t_rb, t1)),
+          "ring_bvh_rows": ties_only(full, tris.packed, t1, i_rb, i1),
+          "ring_sweep_t_bit_equal": bool(torch.equal(t_rs, t1)),
+          "ring_sweep_rows": ties_only(full, tris.packed, t1, i_rs, i1)}
+    log(f"  (d) world size 1 over NCCL: {dd}")
+    require(dd["sharded_bit_equal"] and dd["balanced_bit_equal"] and dd["samples_bit_equal"]
+            and dd["ring_bvh_t_bit_equal"] and dd["ring_sweep_t_bit_equal"]
+            and dd["ring_bvh_rows"]["rows_off"] == dd["ring_bvh_rows"]["ties"]
+            and dd["ring_sweep_rows"]["rows_off"] == dd["ring_sweep_rows"]["ties"],
+            "the distributed code at world size 1 must equal the single-device calls")
+    rec["world1"] = dd
+    del data, sdata, ref, got, b_sh, b_bal
+    torch.cuda.empty_cache()
+
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 (a)-(d) took {rec['seconds']:.1f} s")
+    results.setdefault("parallel", {}).update(rec)
+    return launches
+
+
+def phase_ring_rounds(big, results):
+    """Phase 16 (e), run right after phase 10 while big_env's tables
+    (``big``) are alive: the ring's rounds at D = 4 in one process on its
+    405k rows and 1080p primary rays, both inners against K1 on the whole
+    table."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.parallel import ring_sweep
+
+    t_phase = time.perf_counter()
+    bdata, bconfig, bcam = big
+    btris = bdata.tris
+    full = primary_planes(bconfig, bcam)
+    n = bconfig.width * bconfig.height
+    btabs = (btris.packed, btris.bvh_child, btris.bvh_axis, btris.bvh_boxes)
+    t1, i1 = bt.bvh_closest(*full, *btabs, tcl=bconfig.bvh_tcl, depth=btris.bvh_depth)
+    k1_ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *btabs, tcl=bconfig.bvh_tcl,
+                                                depth=btris.bvh_depth), reps=3)
+    t0 = time.perf_counter()
+    ring = ring_sweep.build_ring_bvh(btris.packed, RING_SHARDS)
+    build_s = time.perf_counter() - t0
+    table, shard_rows = ring_sweep.shard_tris(btris.packed, RING_SHARDS)
+    per = n // RING_SHARDS
+
+    def rounds(step):
+        outs_t, outs_i = [], []
+        for my in range(RING_SHARDS):
+            sl = [p[my * per:(my + 1) * per] for p in full]
+            best = (torch.full((per,), 1e16, device=DEV),
+                    torch.full((per,), -1, dtype=torch.int32, device=DEV))
+            for k in range(RING_SHARDS):
+                best = step(best, sl, (my + k) % RING_SHARDS)
+            outs_t.append(best[0])
+            outs_i.append(best[1])
+        return torch.cat(outs_t), torch.cat(outs_i)
+
+    def bvh_step(best, sl, s):
+        held = tuple(x[s] for x in (ring.rows, ring.child, ring.axis, ring.boxes))
+        return ring_sweep.bvh_round(*best, sl, held, s, ring)
+
+    def sweep_step(best, sl, s):
+        return ring_sweep.sweep_round(*best, sl, table[s * shard_rows:(s + 1) * shard_rows],
+                                      s * shard_rows, inner="kernel")
+
+    e = {"shards": RING_SHARDS, "shard_rows": ring.shard_rows, "tcl": ring.tcl,
+         "depths": list(ring.depth), "build_s": build_s, "k1_ms": k1_ms}
+    hits = int((i1 >= 0).sum())
+    for name, step in (("bvh", bvh_step), ("sweep", sweep_step)):
+        (t_r, i_r), r_ms = host_timed(lambda: rounds(step))
+        rows = ties_only(full, btris.packed, t1, i_r, i1)
+        e[name] = {"ms_all_rounds": r_ms, "t_bit_equal": bool(torch.equal(t_r, t1)),
+                   "hits": hits, **rows}
+    log(f"  (e) ring rounds at D={RING_SHARDS} on big_env ({btris.packed.shape[0]} rows), "
+        f"N={n}: {e}")
+    for name in ("bvh", "sweep"):
+        r = e[name]
+        require(r["t_bit_equal"] and r["rows_off"] == r["ties"] and r["ties"] <= 1e-4 * hits,
+                f"ring rounds ({name}): t must equal K1's, rows off only on ties (<= 1e-4)")
+    e["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 (e) took {e['seconds']:.1f} s")
+    results.setdefault("parallel", {})["ring_d4"] = e
+
+
 def main() -> int:
     if not (REPO / "pupiloptixlab_tpu_torch").is_dir():
         print("chip_smoke.py: the pupiloptixlab_tpu_torch package is not beside "
@@ -1922,7 +2266,11 @@ def main() -> int:
                                         "mismatches": 0, "library_ms": None}
         with torch.inference_mode():
             log("[big_env] 405k triangles on K1/K2 at leaf size 32, 1920x1080")
-            runs["big_env"] = phase_big_env(Path(tmp), bounds, results)
+            runs["big_env"], big = phase_big_env(Path(tmp), bounds, results)
+            log("[parallel] (e) ring rounds at D=4 on big_env's tables")
+            phase_ring_rounds(big, results)
+            del big
+            torch.cuda.empty_cache()
             log("[instanced] 64 instances through System + PTPass on K7/K8, 1920x1080")
             runs["instanced"], inst_xml = phase_instanced(Path(tmp), bounds, results)
         torch.cuda.empty_cache()
@@ -1943,6 +2291,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             log("[mt32] mesh_env under PUPIL_TCL=32 PUPIL_MXU_MT=1 at 1920x1080 on K10")
             runs["mesh_env_mt32"] = phase_mt32(results, ks["bvh_closest_mt"], Bound())
+            torch.cuda.empty_cache()
+            log("[parallel] deep soup (K1/K2 at depth 11), K11 and the balanced frame on "
+                "mesh_env, rays along box faces, world size 1 over NCCL")
+            ks["bvh_closest_count"] = {"library_ms": None}
+            runs["mesh_env_balanced"] = phase_parallel(Path(tmp), results,
+                                                       ks["bvh_closest_count"], Bound())
     torch.cuda.empty_cache()
     log("[parity] card vs CPU, BVH vs chunk sweep")
     phase_parity(results)

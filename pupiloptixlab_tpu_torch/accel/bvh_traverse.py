@@ -8,6 +8,8 @@ argument order as its ``bvh_closest`` and ``bvh_anyhit``. Kernels
   bvh_closest_inst (K7) <- _make_closest_kernel(instanced=True)
   bvh_anyhit_inst  (K8) <- _make_anyhit_kernel(instanced=True)
   bvh_closest_mt   (K10) <- _make_closest_kernel_mxu (bvh_closest(mxu=True))
+  bvh_closest_count (K11) <- _make_closest_kernel(count_iters=True), through
+                          bvh_closest(count_iters=True)
 The TPU streams triangle tables above 8 MB through a DMA ring; K1/K2 read
 every table from device memory, so one kernel serves both.
 
@@ -19,6 +21,14 @@ leaf in table order with the ray mapped into the leaf's instance space,
 as the reference's ``_sweep_tris_xla_instanced`` does: ties at equal t go
 to the lowest world leaf, then the lowest row. The kernels return exactly
 those results, bit for bit.
+
+K11 is K1 with traversal counters: K1's (t, row), bit for bit, and per
+tile of 1024 consecutive rays the sums of two counts over its rays (inner
+nodes taken off the stack, pruned ones included; leaves taken off and
+tested), as (N / 1024, 2) int32 [pops, leaves]. A brute sweep walks no tree,
+so its plain version (``plain_closest_counts``) is K1's walk itself, ray by
+ray in lockstep in PyTorch (``tree_walk``): the same stack, visit order,
+pruning and tie rule, and the same counts.
 
 K10 walks K1's tree (32-row leaves) but tests each leaf through the
 reference's linear form (``mt_cols_table``): det, u*det, v*det and t*det
@@ -41,12 +51,14 @@ from pupiloptixlab_tpu_torch.accel.sweep import _DET_EPS, _PAIR_BUDGET, MAX_DIST
 from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_anyhit as plain_anyhit
 from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_closest as plain_closest
 
-STACK_SIZE = 64  # per-thread traversal stack of the CUDA kernels
+STACK_SIZE = 128  # per-thread traversal stack of the CUDA kernels (the reference's)
+COUNT_TILE = 1024  # rays per K11 count tile (the reference's rb = 8 tile of 8 x 128)
 
 
 def stack_fits(depth: int) -> bool:
     """The kernels pop one node and push up to eight children per level,
-    so a tree of ``depth`` levels needs at most 7 * depth + 1 entries."""
+    so a tree of ``depth`` levels needs at most 7 * depth + 1 entries:
+    depth 18 fits, 19 does not."""
     return 7 * depth + 1 <= STACK_SIZE
 
 
@@ -89,11 +101,16 @@ def _raise_on_flag(name, err):
 
 
 def bvh_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-                tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16, depth: int = 1):
+                tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16, depth: int = 1,
+                count_iters: bool = False):
     """Closest-hit traversal over ray planes; returns (t, idx) with
     (1e16, -1) on a miss. ``depth``: the tree depth the flatten records
-    (checked against the kernel's stack)."""
+    (checked against the kernel's stack). With ``count_iters`` (K11; N a
+    multiple of 1024) it returns (t, idx, counts): the same t and idx, and
+    per tile of 1024 rays the (N / 1024, 2) int32 sums [pops, leaves]."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
+    if count_iters:
+        return _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl, depth)
     if tri.device.type == "cpu":
         return plain_closest(*planes, tri)
     n, n_nodes = _check_args("bvh_closest", planes, tri, bvh_child, bvh_axis,
@@ -110,6 +127,31 @@ def bvh_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
     kernels.check(rc, "bvh_closest")
     _raise_on_flag("bvh_closest", err)
     return t_out, i_out
+
+
+def _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl, depth):
+    """K11 (``bvh_closest(count_iters=True)``): K1 with per-tile counts."""
+    n = planes[0].shape[0]
+    if n % COUNT_TILE:
+        raise ValueError(f"bvh_closest(count_iters=True): N = {n} is not a multiple "
+                         f"of the {COUNT_TILE}-ray count tile")
+    if tri.device.type == "cpu":
+        return plain_closest_counts(*planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl)
+    n, n_nodes = _check_args("bvh_closest_count", planes, tri, bvh_child, bvh_axis,
+                             bvh_boxes, tcl, depth)
+    t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
+    i_out = torch.empty(n, dtype=torch.int32, device=tri.device)
+    counts = torch.zeros((n // COUNT_TILE, 2), dtype=torch.int32, device=tri.device)
+    err = torch.zeros(1, dtype=torch.int32, device=tri.device)
+    fn = kernels.launcher("bvh_closest_count")
+    kernels.LAUNCHES["bvh_closest_count"] += 1
+    rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), bvh_child.data_ptr(),
+            bvh_axis.data_ptr(), bvh_boxes.data_ptr(), n, tri.shape[0], tcl,
+            n_nodes, t_out.data_ptr(), i_out.data_ptr(), counts.data_ptr(),
+            err.data_ptr(), kernels.stream_ptr(tri.device))
+    kernels.check(rc, "bvh_closest_count")
+    _raise_on_flag("bvh_closest_count", err)
+    return t_out, i_out, counts
 
 
 def bvh_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
@@ -130,6 +172,132 @@ def bvh_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
     kernels.check(rc, "bvh_anyhit")
     _raise_on_flag("bvh_anyhit", err)
     return occ
+
+
+def _safe_inv(d):
+    """sign(d) / max(|d|, 1e-12), the sign of 0 taken as +1 (ray_tests.cuh)."""
+    one = torch.ones_like(d)
+    return torch.where(d < 0.0, -one, one) / torch.clamp(torch.abs(d), min=1e-12)
+
+
+def _slab(box, o, d, inv, tmin, tfar):
+    """The slab test of ray_tests.cuh on (m, 8, 8) box rows: whether each
+    box passes (tn <= tf) and its entry distance tn. An axis of exactly
+    zero direction bounds nothing, and the box fails when the origin lies
+    outside its span on that axis (faces included)."""
+    t0, t1 = [], []
+    outside = torch.zeros(box.shape[:-1], dtype=torch.bool, device=box.device)
+    for k in range(3):
+        lo, hi = box[..., k], box[..., k + 3]
+        zero = d[k] == 0.0
+        t0.append(torch.where(zero, -torch.inf, (lo - o[k]) * inv[k]))
+        t1.append(torch.where(zero, torch.inf, (hi - o[k]) * inv[k]))
+        outside |= zero & ((o[k] < lo) | (o[k] > hi))
+    tn = torch.fmax(torch.fmax(torch.fmin(t0[0], t1[0]), torch.fmin(t0[1], t1[1])),
+                    torch.fmax(torch.fmin(t0[2], t1[2]), tmin))
+    tf = torch.fmin(torch.fmin(torch.fmax(t0[0], t1[0]), torch.fmax(t0[1], t1[1])),
+                    torch.fmin(torch.fmax(t0[2], t1[2]), tfar))
+    return ~outside & (tn <= tf), tn
+
+
+def tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+              tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16):
+    """K1's traversal in PyTorch, every ray walking its own stack, the rays
+    stepping in lockstep: each step pops one entry of every ray whose
+    stack is not empty. A step counts an inner entry (id >= 0) as a pop,
+    pruned or not; drops the entry when its t exceeds the ray's best t;
+    tests a leaf's ``tcl`` rows with ``mt_hit_t``, keeping the lowest
+    (t, row); or slab-tests the node's 8 child boxes against
+    min(best t, tmax) and pushes those that pass far-to-near by the ray's
+    sign on the node's split axis. The stack holds ``STACK_SIZE`` (id,
+    entry t) pairs, as the kernels' does.
+
+    Returns (t, idx, pops, leaves, deepest): t and idx as K1's, the (N,)
+    int32 counts of each ray, and the deepest stack any ray reached. Raises
+    where the kernel would set its fault flag (stack overflow, visit cap)."""
+    n = rox.shape[0]
+    dev = rox.device
+    n_nodes = bvh_axis.shape[0]
+    t_rows = tri.shape[0]
+    tbest = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
+    ibest = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    pops = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaves = torch.zeros(n, dtype=torch.int32, device=dev)
+    visits = torch.zeros(n, dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, STACK_SIZE), dtype=torch.int32, device=dev)
+    stack_tn = torch.zeros((n, STACK_SIZE), dtype=torch.float32, device=dev)
+    stack_tn[:, 0] = tmin
+    sp = (tmax > tmin).to(torch.int64)  # the root, for live lanes only
+    deepest = int(sp.max()) if n else 0
+    o = (rox, roy, roz)
+    d = (rdx, rdy, rdz)
+    inv = [_safe_inv(x) for x in d]
+    rows_of_leaf = torch.arange(tcl, device=dev)
+    push = torch.arange(8, device=dev)
+    cols = [tri[:, k] for k in range(9)]
+    active = torch.nonzero(sp > 0).squeeze(1)
+    while active.numel():
+        sp[active] -= 1
+        top = sp[active]
+        ids = stack[active, top]
+        tn_e = stack_tn[active, top]
+        visits[active] += 1
+        if bool((visits[active] > n_nodes * 8 + 1).any()):
+            raise RuntimeError("tree_walk: visit cap exceeded")
+        inner = ids >= 0
+        pops[active] += inner.to(torch.int32)
+        kept = ~(tn_e > tbest[active])  # the kernel's prune test, negated
+
+        leaf = ~inner & kept
+        if bool(leaf.any()):
+            lanes = active[leaf]
+            leaves[lanes] += 1
+            start = torch.clamp(-(ids[leaf] + 1), 0, t_rows - tcl)
+            rows = start[:, None] + rows_of_leaf[None, :]  # (L, tcl)
+            ray = [a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)]
+            t = mt_hit_t(*ray, [c[rows] for c in cols])
+            tj, j = torch.min(t, dim=1)  # rows ascend: the first minimum is the lowest row
+            row = torch.gather(rows, 1, j[:, None]).squeeze(1).to(torch.int32)
+            tb, ib = tbest[lanes], ibest[lanes]
+            better = (tj < MAX_DISTANCE) & ((tj < tb) | ((tj == tb) & (row < ib)))
+            tbest[lanes] = torch.where(better, tj, tb)
+            ibest[lanes] = torch.where(better, row, ib)
+
+        node = inner & kept
+        if bool(node.any()):
+            lanes = active[node]
+            nid = ids[node].to(torch.int64)
+            ax = bvh_axis[nid].to(torch.int64)
+            dsel = torch.stack([x[lanes] for x in d], 1).gather(1, ax[:, None]).squeeze(1)
+            fwd = dsel >= 0.0
+            # push order: children ascend along the axis, so a forward ray
+            # pushes 7..0 and pops the near child 0 first
+            kk = torch.where(fwd[:, None], 7 - push[None, :], push[None, :])  # (m, 8)
+            slot = nid[:, None] * 8 + kk
+            tfar = torch.fmin(tbest[lanes], tmax[lanes])[:, None]
+            ok, tn = _slab(bvh_boxes[slot], [x[lanes][:, None] for x in o],
+                           [x[lanes][:, None] for x in d], [x[lanes][:, None] for x in inv],
+                           tmin[lanes][:, None], tfar)
+            pos = sp[lanes][:, None] + torch.cumsum(ok, dim=1) - 1
+            if bool((pos[ok] >= STACK_SIZE).any()):
+                raise RuntimeError(f"tree_walk: stack overflow (more than {STACK_SIZE} entries)")
+            r_idx = lanes[:, None].expand_as(pos)[ok]
+            stack[r_idx, pos[ok]] = bvh_child[slot[ok]]
+            stack_tn[r_idx, pos[ok]] = tn[ok]
+            sp[lanes] += ok.sum(dim=1)
+            deepest = max(deepest, int(sp[lanes].max()))
+        active = active[sp[active] > 0]
+    return tbest, ibest, pops, leaves, deepest
+
+
+def plain_closest_counts(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+                         tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16):
+    """Plain version of K11: ``tree_walk``'s (t, idx) and its counts summed
+    over each tile of 1024 rays, (N / 1024, 2) int32 [pops, leaves]."""
+    t, idx, pops, leaves, _ = tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri,
+                                        bvh_child, bvh_axis, bvh_boxes, tcl)
+    per_ray = torch.stack([pops, leaves], 1).to(torch.int64)
+    return t, idx, per_ray.reshape(-1, COUNT_TILE, 2).sum(dim=1).to(torch.int32)
 
 
 def leaf_scan_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, leaf_start,

@@ -23,6 +23,7 @@ from pupiloptixlab_tpu_torch import kernels
 MAX_DISTANCE = 1e16
 _DET_EPS = 1e-12
 _PAIR_BUDGET = 1 << 22  # (ray, triangle) pairs per chunk of the plain sweep
+_ONE_THREAD_PAIR_BUDGET = 1 << 16  # the same, for one CPU thread (_pair_budget)
 CHUNK = 64   # rows per chunk (flatten's pad_tris_to)
 GROUP = 32   # chunks per super-box (second culling level)
 
@@ -60,13 +61,24 @@ def mt_hit_t(ox, oy, oz, dx, dy, dz, tmn, tmx, tri_cols):
     return torch.where(ok, t, MAX_DISTANCE)
 
 
+def _pair_budget(device) -> int:
+    """Pairs per chunk of the plain sweep. One CPU thread sweeps ~2.5x
+    faster when a chunk's temporaries stay in its cache (mesh_env's table);
+    with more threads each operation is a parallel region, whose start-up
+    (and, with more threads than free cores, their spinning) a large chunk
+    amortises; on the card a large chunk keeps the launches few."""
+    if device.type == "cpu" and torch.get_num_threads() == 1:
+        return _ONE_THREAD_PAIR_BUDGET
+    return _PAIR_BUDGET
+
+
 def brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit: bool):
     """Closest hit (t, row) of every ray over every row of ``tri`` in
     ``_mt_planes``'s arithmetic (the JAX package's CPU path,
     intersect.py::_sweep_tris_xla), in chunks of at most ``_PAIR_BUDGET``
-    (ray, triangle) pairs; ties at equal t go to the lowest row, a miss is
-    (1e16, -1). With ``any_hit`` a ray chunk stops once all its rays hit
-    (the rows are then a hit, not the closest)."""
+    (ray, triangle) pairs (``_pair_budget``); ties at equal t go to the
+    lowest row, a miss is (1e16, -1). With ``any_hit`` a ray chunk stops
+    once all its rays hit (the rows are then a hit, not the closest)."""
     n = rox.shape[0]
     dev = rox.device
     tbest = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
@@ -75,14 +87,15 @@ def brute_sweep(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, any_hit: bool):
     n_tris = tri.shape[0]
     if live.numel() == 0 or n_tris == 0:
         return tbest, ibest
-    cols = [tri[:, k] for k in range(9)]
-    r_chunk = max(min(live.numel(), _PAIR_BUDGET // 64), 1)
+    cols = [tri[:, k].contiguous() for k in range(9)]
+    budget = _pair_budget(dev)
+    r_chunk = max(min(live.numel(), budget // 64), 1)
     for rs in range(0, live.numel(), r_chunk):
         lanes = live[rs:rs + r_chunk]
         ray = [a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)]
         bt = torch.full((lanes.numel(),), MAX_DISTANCE, dtype=torch.float32, device=dev)
         bi = torch.full((lanes.numel(),), -1, dtype=torch.int32, device=dev)
-        t_chunk = max(_PAIR_BUDGET // lanes.numel(), 8)
+        t_chunk = max(budget // lanes.numel(), 8)
         for ts in range(0, n_tris, t_chunk):
             t = mt_hit_t(*ray, [c[ts:ts + t_chunk][None, :] for c in cols])
             tj, j = torch.min(t, dim=1)  # first (lowest) index among ties

@@ -11,6 +11,9 @@
 //   launch_bvh_anyhit_inst  <- _make_anyhit_kernel(instanced=True)
 //   launch_bvh_closest_mt   <- _make_closest_kernel_mxu (bvh_closest(mxu=True),
 //                              pallas_bvh.py:599), via bvh_closest_mt
+//   launch_bvh_closest_count <- _make_closest_kernel(count_iters=True)
+//                              (pallas_bvh.py:514-590), via
+//                              bvh_closest(count_iters=True)
 //
 // What it computes: per ray, over the 8-wide BVH of accel/bvh.py (child ids
 // with leaves encoded as -(id+1), one split axis per node, 8 child boxes of
@@ -18,6 +21,13 @@
 //   K1: the closest Moller-Trumbore hit (t, row) with t in (tmin, tmax);
 //       a miss writes t = 1e16, row = -1.
 //   K2: an int32 flag, 1 when any triangle is hit in (tmin, tmax).
+//   K11: K1's (t, row), bit for bit, and per tile of 1024 consecutive rays
+//       two int32 sums over its rays: [pops, leaves]. pops counts the stack
+//       entries of inner nodes (id >= 0) that a ray takes off its stack,
+//       those pruned because their entry t exceeds the best t included;
+//       leaves counts the leaf entries (id < 0) it takes off and tests (a
+//       pruned leaf entry is not tested and not counted). A lane with an
+//       empty interval counts 0. The root is the first inner pop.
 // Baked tables: a leaf id is -(row+1), the leaf's first row.
 // Instanced tables (flatten/instanced.py): the tree is a world tree over
 // per-instance leaf boxes built at one leaf per slot, and a leaf id -(li+1)
@@ -40,13 +50,27 @@
 //
 // Design. The TPU kernel walks a 1024-ray TILE through the tree together
 // because the TPU has no per-lane control flow; Hopper does, so here each
-// thread walks the tree for its own ray with a private stack (64 int32 in
-// local memory; the wrapper checks 7 * depth + 1 <= 64 from the depth the
-// flatten records). Children are pushed far-to-near by the ray's own
+// thread walks the tree for its own ray with a private stack (128 entries of
+// node id and entry t in local memory, the reference's STACK_SIZE; the
+// wrapper checks 7 * depth + 1 <= 128 from the depth the flatten records,
+// so trees up to depth 18 are walked). Only the entries a walk reaches are
+// touched, so a shallow tree pays the larger stack in reserved local memory,
+// not in traffic; one stack size keeps one code path for every tree. Children are pushed far-to-near by the ray's own
 // direction sign along the node's split axis (children are stored sorted
 // along it), so the near child pops first. One templated body serves the
 // baked, instanced (kInst) and linear-form (kLinear) closest-hit forms, so
 // all three share the traversal loop.
+//
+// K11's design. The TPU walks a 1024-ray tile in lockstep, so its count is
+// the tile's loop iterations, packed as pops * 65536 + leaves into every
+// lane's idx. Here each ray walks alone, so the cost of the same kind is a
+// sum over the tile's rays. It is K1's body behind kCount: each thread counts
+// in registers, a block of 128 threads sums its counts with one warp
+// reduction and a shared-memory pass, and one thread adds the block's two
+// sums into its tile's slot with integer atomicAdd (8 blocks a tile;
+// integer sums are exact and independent of order). The counts go to their
+// own (N / 1024, 2) output: a tile's pops can pass 32,767, and pops * 65536
+// would overflow int32. Bound: K1's, plus two atomics per 128 rays.
 //
 // Bounds on the card: traversal is latency-bound on dependent loads of node
 // boxes (32 B) and leaf rows (48 B) plus divergence between the rays of a
@@ -90,8 +114,9 @@ namespace {
 
 using namespace rt;
 
-constexpr int kStack = 64;
+constexpr int kStack = 128;
 constexpr int kThreads = 128;
+constexpr int kTile = 1024;  // rays per K11 count tile
 
 enum : int { kErrVisitCap = 1, kErrStack = 2 };
 
@@ -166,7 +191,7 @@ __device__ __forceinline__ Ray to_object(const Ray& r, const float* __restrict__
   return o;
 }
 
-template <bool kInst, bool kLinear>
+template <bool kInst, bool kLinear, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -177,8 +202,10 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const InstTables it, const LinearTable lt, int n, int t_rows,
                    int tcl, int n_nodes, float* __restrict__ t_out,
                    int* __restrict__ i_out, int* __restrict__ l_out,
-                   int* __restrict__ err) {
+                   int* __restrict__ counts, int* __restrict__ err) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
+  // K11 runs n / kThreads full blocks (the wrapper requires n % kTile == 0),
+  // so no thread of a counting launch leaves before its block's reduction
   if (i >= n) return;
   const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
   float f[10];  // K10: the ray's features [d, (o-c) x d, o-c, 1]
@@ -195,6 +222,7 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   float tbest = kMaxDistance;
   int ibest = -1;
   int lbest = -1;  // world leaf of the best hit (instanced form)
+  int pops = 0, leaves = 0;  // K11's counts of this ray
   if (r.tmx > r.tmn) {  // culled lanes (empty interval) return at once
     int stack[kStack];
     float stack_tn[kStack];
@@ -207,10 +235,12 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       if (--visits < 0) { atomicOr(err, kErrVisitCap); break; }
       --sp;
       const int id = stack[sp];
+      if constexpr (kCount) pops += id >= 0;
       // entries whose box starts beyond the best hit cannot improve it
       // (ties stay: the slab test's tn <= tf is inclusive too)
       if (stack_tn[sp] > tbest) continue;
       if (id < 0) {
+        if constexpr (kCount) ++leaves;
         if constexpr (kInst) {
           const int li = world_leaf(id, it);
           const int s = min(max(__ldg(it.leaf_start + li), 0), t_rows - tcl);
@@ -269,6 +299,27 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   t_out[i] = tbest;
   i_out[i] = ibest;
   if constexpr (kInst) l_out[i] = lbest;
+  if constexpr (kCount) {
+    __shared__ int part[2][kThreads / 32];
+    const int wp = __reduce_add_sync(0xffffffffu, pops);
+    const int wl = __reduce_add_sync(0xffffffffu, leaves);
+    if ((threadIdx.x & 31) == 0) {
+      part[0][threadIdx.x >> 5] = wp;
+      part[1][threadIdx.x >> 5] = wl;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int bp = 0, bl = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) {
+        bp += part[0][w];
+        bl += part[1][w];
+      }
+      int* slot = counts + (size_t)(i / kTile) * 2;
+      atomicAdd(slot, bp);
+      atomicAdd(slot + 1, bl);
+    }
+  }
 }
 
 template <bool kInst>
@@ -334,11 +385,12 @@ extern "C" int launch_bvh_closest(
     int n, int t_rows, int tcl, int n_nodes, float* t_out, int* i_out, int* err,
     cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<false, false><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<false, false, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
-        LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, err);
+        LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr,
+        nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -367,12 +419,12 @@ extern "C" int launch_bvh_closest_inst(
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     float* t_out, int* i_out, int* l_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<true, false><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<true, false, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
         InstTables{leaf_start, leaf_inst, w2o, n_leaves}, LinearTable{nullptr, nullptr},
-        n, t_rows, tcl, n_nodes, t_out, i_out, l_out, err);
+        n, t_rows, tcl, n_nodes, t_out, i_out, l_out, nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -402,11 +454,30 @@ extern "C" int launch_bvh_closest_mt(
     const float* boxes, int n, int t_rows, int tcl, int n_nodes, float* t_out,
     int* i_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<false, true><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<false, true, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax, nullptr, child, axis,
         reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
         LinearTable{reinterpret_cast<const float4*>(mt_rows), center},
-        n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, err);
+        n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, nullptr, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// counts: (n / 1024, 2) int32, zeroed by the caller; n % 1024 == 0.
+extern "C" int launch_bvh_closest_count(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* tri, const int* child, const int* axis, const float* boxes,
+    int n, int t_rows, int tcl, int n_nodes, float* t_out, int* i_out, int* counts,
+    int* err, cudaStream_t stream) {
+  if (n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    bvh_closest_kernel<false, false, true><<<n / kThreads, kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+        reinterpret_cast<const float4*>(tri), child, axis,
+        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr,
+        counts, err);
   }
   return static_cast<int>(cudaGetLastError());
 }

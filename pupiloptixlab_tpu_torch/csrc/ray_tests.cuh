@@ -4,7 +4,8 @@
 //
 // Exactness. The slab test is _slab8 (pallas_bvh.py:176-196) and box_test
 // (pallas_intersect.py:209-227) in their min/max form with the inclusive
-// tn <= tf; inverse directions are safe_inv of both files. The triangle test
+// tn <= tf, apart from an axis of exactly zero direction (see slab);
+// inverse directions are safe_inv of both files. The triangle test
 // follows _mt_planes (intersect.py:98-108) operation by operation with IEEE
 // 1/det; the libraries are compiled with -fmad=false, so t is bit-identical
 // to the plain PyTorch sweep.
@@ -12,6 +13,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace rt {
@@ -21,6 +23,7 @@ constexpr float kDetEps = 1e-12f;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmn, tmx;
+  bool axis0;  // some direction component is exactly 0 (slab's rare path)
 };
 
 __device__ __forceinline__ float safe_inv(float d) {
@@ -30,23 +33,47 @@ __device__ __forceinline__ float safe_inv(float d) {
 }
 
 // The slab test for one box; returns tn (entry distance) and whether the
-// box passes (tn <= tf).
+// box passes (tn <= tf). An axis on which the ray's direction is exactly 0
+// bounds nothing, and the box fails when the origin lies outside its span
+// on that axis (lo <= o <= hi passes, faces included). The reference's
+// _slab8 takes (hi - o) * safe_inv(0) = 0 there, so a ray running along the
+// box's hi face gets tf = 0 < tn and drops the box while Moller-Trumbore
+// still hits a triangle edge in that face; a 1024-ray tile of the TPU
+// pushes a box when any lane passes it, which hides that, a walk of one ray
+// per thread does not. Rays with no zero component (all but a few) take
+// the reference's arithmetic unchanged, behind one branch a box on a flag
+// set once per ray.
 __device__ __forceinline__ bool slab(const float4* __restrict__ box,
                                      const Ray& r, float tfar, float* tn_out) {
   const float4 lo = __ldg(box);      // lox loy loz hix
   const float4 hi = __ldg(box + 1);  // hiy hiz 0 0
-  const float tx0 = (lo.x - r.ox) * r.ix;
-  const float ty0 = (lo.y - r.oy) * r.iy;
-  const float tz0 = (lo.z - r.oz) * r.iz;
-  const float tx1 = (lo.w - r.ox) * r.ix;
-  const float ty1 = (hi.x - r.oy) * r.iy;
-  const float tz1 = (hi.y - r.oz) * r.iz;
+  float tx0 = (lo.x - r.ox) * r.ix;
+  float ty0 = (lo.y - r.oy) * r.iy;
+  float tz0 = (lo.z - r.oz) * r.iz;
+  float tx1 = (lo.w - r.ox) * r.ix;
+  float ty1 = (hi.x - r.oy) * r.iy;
+  float tz1 = (hi.y - r.oz) * r.iz;
+  bool outside = false;
+  if (r.axis0) {
+    if (r.dx == 0.0f) {
+      outside |= r.ox < lo.x || r.ox > lo.w;
+      tx0 = -CUDART_INF_F; tx1 = CUDART_INF_F;
+    }
+    if (r.dy == 0.0f) {
+      outside |= r.oy < lo.y || r.oy > hi.x;
+      ty0 = -CUDART_INF_F; ty1 = CUDART_INF_F;
+    }
+    if (r.dz == 0.0f) {
+      outside |= r.oz < lo.z || r.oz > hi.y;
+      tz0 = -CUDART_INF_F; tz1 = CUDART_INF_F;
+    }
+  }
   const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                          fmaxf(fminf(tz0, tz1), r.tmn));
   const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
                          fminf(fmaxf(tz0, tz1), tfar));
   *tn_out = tn;
-  return tn <= tf;
+  return !outside && tn <= tf;
 }
 
 // _mt_planes + the acceptance test of _sweep_tris_xla; t valid iff true.
@@ -85,6 +112,7 @@ __device__ __forceinline__ Ray load_ray(int i, const float* rox, const float* ro
   r.ox = rox[i]; r.oy = roy[i]; r.oz = roz[i];
   r.dx = rdx[i]; r.dy = rdy[i]; r.dz = rdz[i];
   r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
+  r.axis0 = r.dx == 0.0f || r.dy == 0.0f || r.dz == 0.0f;
   r.tmn = tmin[i]; r.tmx = tmax[i];
   return r;
 }

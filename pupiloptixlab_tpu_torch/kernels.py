@@ -43,6 +43,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "bvh_closest": ("bvh_traverse", "launch_bvh_closest",
                     [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "bvh_closest_count": ("bvh_traverse", "launch_bvh_closest_count",
+                          [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "bvh_anyhit": ("bvh_traverse", "launch_bvh_anyhit",
                    [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "bvh_closest_inst": ("bvh_traverse", "launch_bvh_closest_inst",

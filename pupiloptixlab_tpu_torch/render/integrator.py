@@ -12,8 +12,18 @@ pixel blocks exactly as the reference does (lanes are decoded back to
 row-major pixels at the end); the per-pixel RNG is keyed by pixel id, so
 lane order never changes the image.
 
-Not ported here: spectral transport, multi-chip tile permutations and the
-value sanitizer (``NotImplementedError``).
+Multi-device frames (parallel/): ``tile_perm`` reorders the 1024-pixel
+tiles of the block lane order before tracing (chunk-sweep scenes keep
+row-major lanes and ignore it), and ``slab=(k, d)`` traces only the k-th of
+d equal, contiguous slabs of that lane order: whole tiles on the block
+route, whole pixel rows on the row-major route. A slab's buffers stay in
+its lane order (``lane_pixels`` names their pixels); ``lanes_to_pixels``
+turns the whole lane order back into row-major pixels. Since the RNG is
+keyed by pixel id, a slab's lanes equal the same lanes of the whole frame,
+bit for bit, under any permutation.
+
+Not ported here: spectral transport and the value sanitizer
+(``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ from pupiloptixlab_tpu_torch.flatten.types import (
 from pupiloptixlab_tpu_torch.render import bsdf as bsdf_mod
 from pupiloptixlab_tpu_torch.render import emitter as emitter_mod
 from pupiloptixlab_tpu_torch.render import rng
-from pupiloptixlab_tpu_torch.render.camera import generate_rays, generate_rays_for
+from pupiloptixlab_tpu_torch.render.camera import generate_rays_for
 from pupiloptixlab_tpu_torch.render.geometry import get_local_geometry
 from pupiloptixlab_tpu_torch.render.sampling import (
     MAX_DISTANCE,
@@ -51,7 +61,9 @@ _TINY = 1e-12
 _BLOCK_H, _BLOCK_W = 8, 128
 
 
-def _use_blocks(config) -> bool:
+def uses_blocks(config) -> bool:
+    """Whether a frame traces in (8 x 128)-block lane order (the BVH route
+    on a film of whole blocks) rather than row-major."""
     return (
         config.bvh_nodes > 0
         and config.width % _BLOCK_W == 0
@@ -78,6 +90,69 @@ def _block_decode(v: torch.Tensor, width: int, height: int) -> torch.Tensor:
     v4 = v.reshape(hb, wb, _BLOCK_H, _BLOCK_W, *rest)
     perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(rest)))
     return v4.permute(*perm).reshape(height * width, *rest)
+
+
+_TILE = _BLOCK_H * _BLOCK_W  # lanes per tile of the block lane order
+
+
+def lane_pixels(config, tile_perm=None, slab=None, device="cpu") -> torch.Tensor:
+    """(n,) pixel ids of the lanes a frame traces, in lane order: every
+    pixel of the film, or slab ``(k, d)`` of them. Block route: the
+    (8 x 128)-block order, its tiles reordered by ``tile_perm``; row-major
+    route: pixel order (``tile_perm`` ignored, as the reference does)."""
+    w, h = config.width, config.height
+    n = w * h
+    if uses_blocks(config):
+        pix = _block_pix(w, h, device)
+        if tile_perm is not None:
+            perm = torch.as_tensor(tile_perm, device=device).long()
+            if perm.shape != (n // _TILE,):
+                raise ValueError(f"tile_perm: expected ({n // _TILE},) tile indices, "
+                                 f"got {tuple(perm.shape)}")
+            pix = pix.reshape(-1, _TILE)[perm].reshape(-1)
+        quantum = _TILE
+    else:
+        pix = torch.arange(n, dtype=torch.int64, device=device)
+        quantum = w
+    if slab is None:
+        return pix
+    k, d = slab
+    if not (0 <= k < d) or n % (d * quantum):
+        unit = "tiles of 1024 pixels" if quantum == _TILE else f"rows of {w} pixels"
+        raise ValueError(f"slab {k} of {d}: the film's {n // quantum} {unit} do not "
+                         f"split into {d} equal slabs")
+    size = n // d
+    return pix[k * size:(k + 1) * size]
+
+
+def lanes_to_pixels(v: torch.Tensor, config, tile_perm=None) -> torch.Tensor:
+    """(N, *) buffers in the whole frame's lane order -> row-major pixel
+    order: tiles un-permuted (one 1024-row move per tile), then the block
+    decode (reshape + permute only). The identity on the row-major route."""
+    if not uses_blocks(config):
+        return v
+    w, h = config.width, config.height
+    if tile_perm is not None:
+        perm = torch.as_tensor(tile_perm, device=v.device).long()
+        inv = torch.argsort(perm)
+        v = v.reshape(-1, _TILE, *v.shape[1:])[inv].reshape(v.shape)
+    return _block_decode(v, w, h)
+
+
+def primary_rays(camera: CameraBlock, config: RenderConfig, seed: int, pix: torch.Tensor):
+    """The camera rays of the lanes ``pix`` (pixel ids, as ``lane_pixels``
+    gives them) at ``seed``: each pixel's stream starts at (pixel id, seed)
+    and its first two draws jitter the ray. Returns the streams' state after
+    those draws and the rays (ro, rd, tmin, tmax), tmin = RAY_OFFSET,
+    tmax = MAX_DISTANCE: what ``render_sample`` traces first, and what the
+    cost model (parallel/balance.py) walks."""
+    n = pix.shape[0]
+    state = rng.tea_init(pix, seed)
+    state, (jx, jy) = rng.next_floats(state, 2)
+    ro, rd = generate_rays_for(camera, config.width, config.height, pix, jx, jy)
+    tmin = torch.full((n,), RAY_OFFSET, dtype=torch.float32, device=pix.device)
+    tmax = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=pix.device)
+    return state, (ro, rd, tmin, tmax)
 
 
 def _first_hit_emission(scene, config, geo) -> Vec3:
@@ -198,32 +273,21 @@ def render_sample(
     seed: int,
     config: RenderConfig,
     tile_perm=None,
+    slab=None,
 ):
     """Trace one sample per pixel; returns a dict of flat (N, *) buffers:
-    radiance, albedo, normal, test."""
+    radiance, albedo, normal, test, in row-major pixel order. With ``slab``
+    (k, d) only the lanes ``lane_pixels(config, tile_perm, slab)`` are
+    traced, and the buffers are (N / d, *) in their lane order."""
     if config.spectral:
         raise NotImplementedError("spectral transport: ROADMAP A.9")
-    if tile_perm is not None:
-        raise NotImplementedError("multi-chip tile permutation: ROADMAP A.13")
     if config.debug_checks:
         raise NotImplementedError("value sanitizer (debug_checks): ROADMAP A.12")
-    w, h = config.width, config.height
-    n = w * h
     em, tex = scene.emitters, scene.textures
     dev = scene.tris.packed.device
-
-    if _use_blocks(config):
-        pix = _block_pix(w, h, dev)
-        state = rng.tea_init(pix, seed)
-        state, (jx, jy) = rng.next_floats(state, 2)
-        ro, rd = generate_rays_for(camera, w, h, pix, jx, jy)
-    else:
-        state = rng.tea_init(torch.arange(n, dtype=torch.int64, device=dev), seed)
-        state, (jx, jy) = rng.next_floats(state, 2)
-        ro, rd = generate_rays(camera, w, h, jx, jy)
-
-    tmin = torch.full((n,), RAY_OFFSET, dtype=torch.float32, device=dev)
-    tmax = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
+    pix = lane_pixels(config, tile_perm, slab, dev)
+    n = pix.shape[0]
+    state, (ro, rd, tmin, tmax) = primary_rays(camera, config, seed, pix)
     hit = intersect_closest(ro, rd, tmin, tmax, scene, config)
     geo = get_local_geometry(scene, hit, ro, rd, config.sphere_count,
                              config.instanced, config.curve_count)
@@ -281,8 +345,8 @@ def render_sample(
         "normal": normal_aov.to_array(),
         "test": test_aov,
     }
-    if _use_blocks(config):
-        out = {k: _block_decode(v, w, h) for k, v in out.items()}
+    if slab is None:
+        out = {k: lanes_to_pixels(v, config, tile_perm) for k, v in out.items()}
     return out
 
 
@@ -294,14 +358,17 @@ def render_frame(
     accum: torch.Tensor,
     config: RenderConfig,
     tile_perm=None,
+    slab=None,
 ):
     """One progressive frame: trace + accumulate (main.cu:187-193).
 
     ``accum`` ((N, 3) float32) is updated in place, as the reference
     donates it. Returns (accum, buffers) where buffers holds the
-    displayable AOVs (frame, albedo, normal, test)."""
+    displayable AOVs (frame, albedo, normal, test). ``tile_perm`` and
+    ``slab`` as in ``render_sample``: with a slab, ``accum`` and the
+    buffers hold that slab's lanes only, in lane order."""
     with torch.inference_mode():
-        out = render_sample(scene, camera, seed, config, tile_perm)
+        out = render_sample(scene, camera, seed, config, tile_perm, slab)
         radiance = out["radiance"]
         if config.accumulate and sample_cnt > 0:
             t = _f32(np.float32(1.0) / (np.float32(sample_cnt) + np.float32(1.0)))

@@ -172,23 +172,30 @@ def test_render_is_a_loop_of_frames():
 
 @pytest.mark.parametrize("change", ["spectral", "debug_checks", "tile_perm"])
 def test_unported_options_raise(change):
+    """Spectral transport and the sanitizer still raise. ``tile_perm`` is
+    ported (parallel/): a chunk-sweep scene keeps its row-major lanes and
+    ignores it, as the reference does, so the frame is the same."""
     scene = _load("oracle_mat.xml", 8, 8)
     data, config = flatten_scene(scene, device="cpu")
     cam = camera_block_from_scene(scene, device="cpu")
-    perm = None
     if change == "tile_perm":
-        perm = torch.arange(1)
-    else:
-        config = dataclasses.replace(config, **{change: True})
+        _, plain = render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config)
+        plain = {k: v.clone() for k, v in plain.items()}
+        _, got = render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config,
+                              tile_perm=torch.arange(1))
+        assert all(torch.equal(got[k], plain[k]) for k in plain)
+        return
+    config = dataclasses.replace(config, **{change: True})
     with pytest.raises(NotImplementedError):
-        render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config, tile_perm=perm)
+        render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config)
 
 
 def test_port_never_imports_jax():
     """In a fresh interpreter the port loads mesh_env with its own scene
     layer, flattens it, renders one 128x8 frame, and steps a System with a
     PTPass and a DenoisePass on oracle_mat (the denoiser and the matmul-form
-    leaf test's modules come in through them), all on the CPU, importing
+    leaf test's modules come in through them), and imports the multi-device
+    modules (parallel/ with its dry run), all on the CPU, importing
     neither jax nor any module of the JAX package. It runs with
     JAX_PLATFORMS=cpu set, which
     makes the JAX package's __init__ import jax: the stricter of the two
@@ -216,6 +223,12 @@ def test_port_never_imports_jax():
         frame = system.buffers["pt frame"].array
         assert system.passes[0].sample_cnt == 2 and float(frame.mean()) > 0
         assert bool(torch.isfinite(system.buffers["pt denoised"].array).all())
+        import pupiloptixlab_tpu_torch.parallel
+        import pupiloptixlab_tpu_torch.parallel.balance
+        import pupiloptixlab_tpu_torch.parallel.dryrun
+        import pupiloptixlab_tpu_torch.parallel.ring_sweep
+        import pupiloptixlab_tpu_torch.parallel.sharding
+        import pupiloptixlab_tpu_torch.scene.deep_soup
         foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                          or m == "pupiloptixlab_tpu" or m.startswith("pupiloptixlab_tpu."))
         assert not foreign, foreign

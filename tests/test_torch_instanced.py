@@ -269,5 +269,5 @@ def test_instanced_tables_off_the_cpu_reach_the_kernels(monkeypatch):
         with pytest.raises(RuntimeError, match=f"launch {name}"):
             fn(*p, *tabs, tcl=32, depth=2)
         with pytest.raises(ValueError, match="stack"):
-            fn(*p, *tabs, tcl=32, depth=10)
+            fn(*p, *tabs, tcl=32, depth=19)
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -224,12 +224,15 @@ def test_empty_intervals_and_misses():
 
 
 def test_stack_bound_is_checked():
-    assert bt.stack_fits(9) and not bt.stack_fits(10)
+    """The kernels hold the reference's 128 stack entries: depth 18 fits
+    (7 * 18 + 1 = 127), 19 does not."""
+    assert bt.STACK_SIZE == 128
+    assert bt.stack_fits(18) and not bt.stack_fits(19)
     p = [torch.zeros(4, device="meta") for _ in range(8)]
     tabs = (torch.zeros((16, 12), device="meta"), torch.zeros(8, dtype=torch.int32, device="meta"),
             torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros((8, 8), device="meta"))
     with pytest.raises(ValueError, match="stack"):
-        bt.bvh_closest(*p, *tabs, tcl=16, depth=10)
+        bt.bvh_closest(*p, *tabs, tcl=16, depth=19)
 
 
 def test_device_tensors_never_take_the_plain_version(monkeypatch):
