@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+K3 and K4 alone:                  python3 chip_smoke.py --tables LABEL [--package DIR]
+(--package DIR imports the package from another tree, for example a parent
+commit unpacked with git archive, to time its kernels under this script's
+timing in the same call; main_tables says what it runs.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -13,16 +17,27 @@ Phases (each fails the run on its first fault; nothing is caught):
               traversal kernels (K1 closest, K2 any hit) on primary, bounce
               and shadow rays, exact against the brute-force sweep on a
               65,536-ray subset and timed at full N; the gather (K3) on the
-              triangle attributes, the env column CDF and the texel pool,
-              and the CDF count (K4) on the env row CDF, both bit-exact and
-              each beside one PyTorch library call on the same inputs
+              texel pools and on each of the first bounce's own calls as its
+              call site makes it (whole rows, column selections, a column of
+              the strided material table, views), and the CDF count (K4) on
+              the env row CDF and, in its row-indexed form, on the env
+              column CDF at the first bounce's own rows and draws (equal on
+              every lane to the former gather-compare-sum form), all
+              bit-exact, each beside one PyTorch library call on the same
+              inputs where there is one; each timed three ways: CUDA events
+              around 10 calls (ms, what the kernels line sums), and device
+              time apart from issue time (split_time_ms); one call of each
+              wrapper form under torch.profiler must
+              issue exactly one kernel, its own; the launch path's pieces
+              timed on the host
   4. frame    render_frame on the mesh_env BVH route at 1920x1080, depth 4:
               1 warm-up + 2 timed frames, launch counters reset just before
               and read just after; fails unless K1-K4 each launched
   5. sweep    K3 and K4 again, at the shapes the oracle_mat path gives them
               (its attribute, sphere, material, emitter and texture tables
-              at the main path's own indices; its emitter-select CDF at its
-              own draws), bit-exact and timed as in phase 3;
+              at the main path's own indices and column selections; its
+              emitter-select CDF at its own draws), bit-exact and timed as in
+              phase 3;
               K5 (closest) and K6 (any hit) against their plain versions,
               exact (row equal, t bit-equal, flag equal) on 65,536-lane
               subsets of the main path's primary, bounce and shadow rays and
@@ -151,6 +166,11 @@ run (phase 16c: one launch per balance refresh, timed on the 1080p primary
 rays, its plain version on the 64 tiles it is compared on). On big_env and
 the instanced scene the plain versions are timed on the 65,536-lane subset
 they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
+K4's ms, plain_ms, bound_ms and library_ms cover its shared-form calls
+alone, so that all four sum the same calls; its row-indexed calls, which
+no one PyTorch call computes, have their own sums under "row_form"
+(library_ms null, three_step_ms the former gather-compare-sum form on the
+same inputs). Its launches count both forms.
 
 Output: progress lines, then a {"kernels": [...]} JSON line, the
 ``nvidia-smi --query-gpu=name,power.limit`` line, and as the last line
@@ -277,6 +297,36 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of torch.cuda._sleep at the H100's 1.98 GHz boost clock
+
+
+def split_time_ms(fn, reps: int = 20) -> tuple[float, float]:
+    """(device ms, issue ms) per call, the two apart: ``reps`` calls are
+    queued behind a ~0.1 s ``torch.cuda._sleep``, so the host issues them
+    all while the card still sleeps. CUDA events recorded after the sleep
+    and after the last call give the device's time for the calls alone
+    (the kernels back to back, no wait for the host); the host clock
+    around the calls gives the time to issue one. Fails if the host did
+    not run ahead (the end event already complete when it was recorded)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    ahead = not end.query()
+    torch.cuda.synchronize()
+    require(ahead, "split_time_ms: the host did not run ahead of the card")
+    return start.elapsed_time(end) / reps, issue_ms
+
+
 def host_timed(fn):
     """(result, ms) of one call on the host clock, ended by a synchronise
     (the plain sweeps take up to seconds a call)."""
@@ -371,14 +421,26 @@ def main_path_rays(data, config, cam, seed: int = 0):
     without area emitters)."""
     import torch
 
-    from pupiloptixlab_tpu_torch.accel.gather import gather_cols
+    from pupiloptixlab_tpu_torch.accel.gather import count_less, gather_cols
     from pupiloptixlab_tpu_torch.accel.intersect import intersect_closest
-    from pupiloptixlab_tpu_torch.flatten.types import EM_RAD_TEX, MAT_TWOSIDED
+    from pupiloptixlab_tpu_torch.flatten.types import (
+        EM_AREA,
+        EM_ETYPE,
+        EM_RAD_TEX,
+        EM_SELECT_PROB,
+        INST_W2O0,
+        MAT_DISPERSION,
+        MAT_TEX0,
+        MAT_TWOSIDED,
+        SLOT_SPECULAR,
+        SPH_FLIP,
+    )
     from pupiloptixlab_tpu_torch.render import bsdf as bsdf_mod
     from pupiloptixlab_tpu_torch.render import emitter as emitter_mod
     from pupiloptixlab_tpu_torch.render import rng
     from pupiloptixlab_tpu_torch.render.geometry import get_local_geometry
     from pupiloptixlab_tpu_torch.render.integrator import lane_pixels, primary_rays
+    from pupiloptixlab_tpu_torch.render import texture as texture_mod
     from pupiloptixlab_tpu_torch.render.sampling import RAY_OFFSET, is_zero, to_local, to_world
 
     pix = lane_pixels(config, device=data.tris.packed.device)
@@ -414,26 +476,48 @@ def main_path_rays(data, config, cam, seed: int = 0):
     def i32(t):
         return t.to(torch.int32).contiguous()
 
-    mats = data.materials.packed
-    gathers = {"tris.attrs": (data.tris.attrs, i32(hit.prim)),
-               "materials.packed": (mats, i32(geo.mat_id)),
-               "materials.twosided": (mats[:, MAT_TWOSIDED:MAT_TWOSIDED + 1].contiguous(),
-                                      i32(geo.mat_id))}
+    # the K3 calls of this bounce as the frame makes them: (table, indices,
+    # the columns the call site selects, None for every column)
+    mats, tex, em = data.materials.packed, data.textures, data.emitters
+    texture_cols = texture_mod.texture_cols
+    spec_tex = mats[geo.mat_id.long(), MAT_TEX0 + SLOT_SPECULAR]
+    gathers = {"tris.attrs": (data.tris.attrs, i32(hit.prim), None),
+               "materials.params": (mats, i32(geo.mat_id), tuple(range(MAT_DISPERSION + 1))),
+               "materials.twosided": (mats, i32(geo.mat_id), (MAT_TWOSIDED,)),
+               "textures.specular": (tex.packed, i32(spec_tex), texture_cols(
+                   config.mat_tex_kinds, config.mat_tex_filters, tex.pool_bi.shape[0] > 1))}
     counts = {}
     if config.instanced:
         tr = data.tris
-        gathers["tris.inst_w2o"] = (tr.inst_w2o, i32(hit.inst))
-        gathers["tris.inst_packed"] = (tr.inst_packed, i32(hit.inst))
+        gathers["tris.inst_w2o"] = (tr.inst_w2o, i32(hit.inst), None)
+        gathers["tris.inst_packed"] = (tr.inst_packed, i32(hit.inst),
+                                       tuple(range(INST_W2O0 + 1)))
     if config.sphere_count:
         sph = data.spheres.attrs
-        gathers["spheres.attrs"] = (sph, i32(hit.prim.clamp(max=sph.shape[0] - 1)))
+        gathers["spheres.attrs"] = (sph, i32(hit.prim.clamp(max=sph.shape[0] - 1)),
+                                    tuple(range(SPH_FLIP + 1)))
+    eid = i32(geo.emitter_id.clamp(min=0))
+    gathers["emitters.rad_tex"] = (em.packed, eid, (EM_RAD_TEX,))
+    gathers["emitters.eval"] = (em.packed, eid, (EM_AREA, EM_SELECT_PROB, EM_RAD_TEX))
     if config.emitter_count:
-        em = data.emitters
         erow = gather_cols(em.packed, idx)
-        gathers["emitters.packed"] = (em.packed, i32(idx))
-        gathers["textures.packed"] = (data.textures.packed, i32(erow[EM_RAD_TEX]))
+        gathers["emitters.record"] = (em.packed, i32(idx), tuple(range(EM_ETYPE + 1)))
+        gathers["textures.emission"] = (tex.packed, i32(erow[EM_RAD_TEX]), texture_cols(
+            config.em_tex_kinds, config.em_tex_filters, tex.pool_bi.shape[0] > 1))
         counts["emitters.select_cdf"] = (
             em.select_cdf[:config.emitter_count].contiguous(), u_sel.contiguous())
+    w, h = config.env_size
+    if config.has_env and w > 0:
+        # the envmap's two counts at this bounce's own draws (the row CDF
+        # with u1, then that row of the column CDF with u2), and the row
+        # weights at the sampled rows
+        counts["env_row_cdf"] = (em.env_row_cdf, u_l1.contiguous())
+        row = torch.clamp(count_less(em.env_row_cdf, u_l1) - 1, 0, h - 1)
+        counts["env_col_cdf rows"] = (em.env_col_cdf, u_l2.contiguous(), row)
+        gathers["env_row_weight"] = (em.env_row_weight[:, None], row, None)
+        if h > 1:
+            gathers["env_row_pairs"] = (em.env_row_weight.unfold(0, 2, 1),
+                                        row.clamp(max=h - 2), None)
     return {"primary": primary, "bounce": bounce, "shadow": shadow,
             "gathers": gathers, "counts": counts}
 
@@ -455,32 +539,48 @@ def pick_lanes(n: int, device):
 
 
 def check_gathers(scene, cases, k3, bound):
-    """K3 on each (table, idx) of ``cases``: bit-equal to its plain version
-    and to the one PyTorch call that computes the same planes, and timed
-    beside both; the times and the bound are added to ``k3``'s sums."""
+    """K3 on each (table, idx, cols) of ``cases`` as its call site makes it
+    (``ga.gather_cols``; cols None = every column): bit-equal to its plain
+    version and to one PyTorch call that computes the same planes
+    (``index_select`` along the columns of the selected table's transpose),
+    and timed beside both: CUDA events around 10 calls (ms), and device and
+    issue time apart (split_time_ms). Times and the bound go to ``k3``'s
+    sums."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import gather as ga
 
-    for label, (table, idx) in cases.items():
-        got = ga.gather_planes(table, idx)
-        want = ga.gather_planes_plain(table, idx)
+    for label, (table, idx, cols) in cases.items():
+        def call():
+            return ga.gather_cols(table, idx, cols)
+
+        sel = table if cols is None else table[:, list(cols)]
+        got = call()
+        want = ga.gather_planes_plain(sel, idx)
         exact = bool(torch.equal(got, want))
         err = float((got - want).abs().max())
         safe = idx.clamp(0, table.shape[0] - 1)  # index_select takes no stray index
-        lib = table.index_select(0, safe).t().contiguous()
+        planes_t = sel.t().contiguous()  # (K, T): the table in the planes' layout
+        lib = planes_t.index_select(1, safe)
         require(bool(torch.equal(lib, want)), f"K3 {scene} {label}: index_select disagrees")
-        ms = cuda_time_ms(lambda: ga.gather_planes(table, idx), reps=10)
-        plain_ms = cuda_time_ms(lambda: ga.gather_planes_plain(table, idx), reps=10)
-        lib_ms = cuda_time_ms(lambda: table.index_select(0, safe).t().contiguous(), reps=10)
-        b_ms, by = bound.add(nbytes(table, idx, got), 0.0)
-        log(f"  K3 {scene} {label} {tuple(table.shape)} N={idx.shape[0]}: bit-equal {exact}, "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_select+t {lib_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({by})")
+        ms = cuda_time_ms(call, reps=10)
+        plain_ms = cuda_time_ms(lambda: ga.gather_planes_plain(sel, idx), reps=10)
+        lib_ms = cuda_time_ms(lambda: planes_t.index_select(1, safe), reps=10)
+        dev_ms, issue_ms = split_time_ms(call)
+        lib_dev_ms, lib_issue_ms = split_time_ms(lambda: planes_t.index_select(1, safe))
+        b_ms, by = bound.add(nbytes(sel, idx, got), 0.0)
+        log(f"  K3 {scene} {label} {tuple(table.shape)} cols "
+            f"{'all' if cols is None else len(cols)} N={idx.shape[0]}: bit-equal {exact}, "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f}, issue {issue_ms:.4f}), plain "
+            f"{plain_ms:.3f} ms, index_select {lib_ms:.4f} ms (device {lib_dev_ms:.4f}, "
+            f"issue {lib_issue_ms:.4f}), bound {b_ms:.4f} ms ({by})")
         require(exact, f"K3 {scene} {label}: kernel disagrees with table[idx].T")
         k3.setdefault("calls", {})[f"{scene} {label}"] = {
-            "shape": list(table.shape), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
+            "shape": list(table.shape), "strides": list(table.stride()),
+            "cols": None if cols is None else list(cols), "n": idx.shape[0],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": by, "device_ms": dev_ms, "issue_ms": issue_ms,
+            "library_device_ms": lib_dev_ms, "library_issue_ms": lib_issue_ms}
         k3["ms"] += ms
         k3["plain_ms"] += plain_ms
         k3["library_ms"] += lib_ms
@@ -488,38 +588,99 @@ def check_gathers(scene, cases, k3, bound):
     k3.update(bound.fields())
 
 
-def check_counts(scene, cases, k4, bound):
-    """K4 on each (cdf, queries) of ``cases``: equal to the plain linear
-    count and to torch.searchsorted (side='left' counts the entries
-    strictly below), and timed beside both; sums go to ``k4``."""
+def k4_record() -> dict:
+    """K4's sums: the shared form's calls at the top level (ms, plain_ms,
+    library_ms and bound_ms over the same calls), the row-indexed form's
+    under ``row_form``, whose library_ms is None (no one PyTorch call
+    computes it) and whose three_step_ms sums the former gather-compare-sum
+    form on the same inputs."""
+    sums = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+    return {**sums, "library_ms": 0.0,
+            "row_form": {**sums, "library_ms": None, "three_step_ms": 0.0}}
+
+
+def k4_bounds() -> dict:
+    return {"shared": Bound(), "rows": Bound()}
+
+
+def check_counts(scene, cases, k4, bounds):
+    """K4 on each case of ``cases``: (cdf, queries), the shared form, equal
+    to the plain linear count and to torch.searchsorted (side='left' counts
+    the entries strictly below); or (table, queries, rows), the row form,
+    equal to its plain linear count and to the envmap's former three-step
+    form (K3 gathers each query's whole row, compare, sum), with no single
+    PyTorch call to set beside it. Each is timed as check_gathers times;
+    the three-step form beside the row form. Sums go to ``k4``
+    (k4_record), the bounds to ``bounds`` (k4_bounds), each form apart."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import gather as ga
 
-    for label, (cdf, q) in cases.items():
-        require(bool((cdf[1:] >= cdf[:-1]).all()), f"{scene} {label} must be nondecreasing")
-        got = ga.count_less(cdf, q)
-        want = ga.count_less_plain(cdf, q)
+    for label, case in cases.items():
+        cdf, q = case[:2]
+        rows = case[2] if len(case) == 3 else None
+        if rows is None:
+            require(bool((cdf[1:] >= cdf[:-1]).all()), f"{scene} {label} must be nondecreasing")
+        else:
+            require(bool((cdf[:, 1:] >= cdf[:, :-1]).all()),
+                    f"{scene} {label}: every row must be nondecreasing")
+
+            def three_step():
+                return (ga.gather_cols(cdf, rows) < q[None, :]).sum(0, dtype=torch.int32)
+
+            old = three_step()
+            old_ms = cuda_time_ms(three_step, reps=10)
+            old_dev_ms, old_issue_ms = split_time_ms(three_step)
+
+        def call():
+            return ga.count_less(cdf, q, rows=rows)
+
+        def plain():
+            return ga.count_less_plain(cdf, q, rows)
+
+        got = call()
+        want = plain()
         err = int((got - want).abs().max())
-        lib = torch.searchsorted(cdf, q).to(torch.int32)
-        require(bool(torch.equal(lib, want)), f"K4 {scene} {label}: searchsorted disagrees")
-        ms = cuda_time_ms(lambda: ga.count_less(cdf, q), reps=10)
-        plain_ms = cuda_time_ms(lambda: ga.count_less_plain(cdf, q), reps=3)
-        lib_ms = cuda_time_ms(lambda: torch.searchsorted(cdf, q), reps=10)
-        steps = max(int(cdf.shape[0]).bit_length(), 1)  # compares of a binary search
-        b_ms, by = bound.add(nbytes(cdf, q, got), q.shape[0] * steps)
+        ms = cuda_time_ms(call, reps=10)
+        plain_ms = cuda_time_ms(plain, reps=3)
+        dev_ms, issue_ms = split_time_ms(call)
+        steps = max(int(cdf.shape[-1]).bit_length(), 1)  # compares of a binary search
+        rec = {"shape": list(cdf.shape), "n": q.shape[0], "ms": ms, "plain_ms": plain_ms,
+               "device_ms": dev_ms, "issue_ms": issue_ms}
+        if rows is None:
+            lib = torch.searchsorted(cdf, q).to(torch.int32)
+            require(bool(torch.equal(lib, want)), f"K4 {scene} {label}: searchsorted disagrees")
+            lib_ms = cuda_time_ms(lambda: torch.searchsorted(cdf, q), reps=10)
+            lib_dev_ms, lib_issue_ms = split_time_ms(lambda: torch.searchsorted(cdf, q))
+            rec.update(library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                       library_issue_ms=lib_issue_ms)
+            b_ms, by = bounds["shared"].add(nbytes(cdf, q, got), q.shape[0] * steps)
+            beside = (f"searchsorted {lib_ms:.4f} ms (device {lib_dev_ms:.4f}, issue "
+                      f"{lib_issue_ms:.4f})")
+            sums = k4
+            sums["library_ms"] += lib_ms
+        else:
+            same_old = bool(torch.equal(got, old))
+            rec.update(library_ms=None, three_step_ms=old_ms, three_step_device_ms=old_dev_ms,
+                       three_step_issue_ms=old_issue_ms, equals_three_step=same_old)
+            b_ms, by = bounds["rows"].add(nbytes(cdf, q, rows, got), q.shape[0] * steps)
+            beside = (f"library call none; three-step form {old_ms:.4f} ms (device "
+                      f"{old_dev_ms:.4f}, issue {old_issue_ms:.4f}), equal {same_old}")
+            require(same_old, f"K4 {scene} {label}: the row form disagrees with the "
+                    "gather-compare-sum form")
+            sums = k4["row_form"]
+            sums["three_step_ms"] += old_ms
+        rec.update(bound_ms=b_ms, bound_by=by)
         log(f"  K4 {scene} {label} {tuple(cdf.shape)} N={q.shape[0]}: max |diff| {err}, "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, searchsorted {lib_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({by})")
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f}, issue {issue_ms:.4f}), plain "
+            f"{plain_ms:.3f} ms, {beside}, bound {b_ms:.4f} ms ({by})")
         require(err == 0, f"K4 {scene} {label}: kernel disagrees with the linear count")
-        k4.setdefault("calls", {})[f"{scene} {label}"] = {
-            "shape": list(cdf.shape), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
-        k4["ms"] += ms
-        k4["plain_ms"] += plain_ms
-        k4["library_ms"] += lib_ms
-        k4["max_abs_err"] = max(k4["max_abs_err"], float(err))
-    k4.update(bound.fields())
+        k4.setdefault("calls", {})[f"{scene} {label}"] = rec
+        sums["ms"] += ms
+        sums["plain_ms"] += plain_ms
+        sums["max_abs_err"] = max(sums["max_abs_err"], float(err))
+    k4.update(bounds["shared"].fields())
+    k4["row_form"].update(bounds["rows"].fields())
 
 
 def check_traversal(scene, data, config, rays, lanes, out, bounds, plain_subset):
@@ -604,13 +765,7 @@ def check_traversal(scene, data, config, rays, lanes, out, bounds, plain_subset)
 
 
 def phase_kernels(data, config, cam, results):
-    import torch
-
-    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
-
     tris = data.tris
-    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
-    kw = dict(tcl=config.bvh_tcl, depth=tris.bvh_depth)
     rays = main_path_rays(data, config, cam)
     n = config.width * config.height
     lanes = pick_lanes(n, tris.packed.device)
@@ -620,34 +775,44 @@ def phase_kernels(data, config, cam, results):
     bounds = {"bvh_closest": Bound(), "bvh_anyhit": Bound()}
     check_traversal("mesh_env", data, config, rays, lanes, out, bounds, plain_subset=False)
 
-    # K3 gather into planes: attrs at the primary hit rows, env column CDF
-    # rows, texel pool (bilinear-quad pool too), all bit-exact; K4 on the
-    # env row CDF (flat runs where env rows are black); beside each, the one
-    # PyTorch call that computes the same result
-    dev = tris.packed.device
-    _, i_prim = bt.bvh_closest(*planes_of(rays["primary"]), *tabs, **kw)
-    env_gathers, env_counts = env_cases(data, n, seed=1)
+    results["kernels"] = out
+    bounds.update(check_mesh_env_tables(data, rays, results))
+    check_one_launch(data, rays, results)
+    launch_path_us(results)
+    return bounds
+
+
+def check_mesh_env_tables(data, rays, results):
+    """K3 and K4 at mesh_env's shapes: K3 on the texel pool (the
+    bilinear-quad pool too) at seeded texels and on the first bounce's own
+    calls (the triangle attributes at the primary hit rows among them) (``rays``: main_path_rays), all bit-exact; K4
+    on the env CDFs at seeded draws (env_cases) and at the first bounce's
+    own draws and rows; beside each, the one PyTorch call that computes the
+    same result where there is one. Returns K3's and K4's running bounds."""
+    import torch
+
     tex = data.textures
+    dev = tex.pool.device
+    n = rays["primary"][2].shape[0]
     g = torch.Generator(device=dev).manual_seed(4)
     cases = {
-        "attrs": (tris.attrs, i_prim),
-        **env_gathers,
         "pool": (tex.pool, torch.randint(0, tex.pool.shape[0], (n,), generator=g,
-                                         device=dev, dtype=torch.int32)),
+                                         device=dev, dtype=torch.int32), None),
         "pool_bi": (tex.pool_bi, torch.randint(0, tex.pool_bi.shape[0], (n,),
                                                generator=g, device=dev,
-                                               dtype=torch.int32)),
+                                               dtype=torch.int32), None),
+        **rays["gathers"],
     }
+    counts = {**env_cases(data, n, seed=1), **rays["counts"]}
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
     k3_bound = Bound()
     check_gathers("mesh_env", cases, k3, k3_bound)
-    out["gather_planes"] = k3
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
-    k4_bound = Bound()
-    check_counts("mesh_env", env_counts, k4, k4_bound)
-    out["count_less"] = k4
-    results["kernels"] = out
-    return {**bounds, "gather_planes": k3_bound, "count_less": k4_bound}
+    k4 = k4_record()
+    k4_bound = k4_bounds()
+    check_counts("mesh_env", counts, k4, k4_bound)
+    results["kernels"]["gather_planes"] = k3
+    results["kernels"]["count_less"] = k4
+    return {"gather_planes": k3_bound, "count_less": k4_bound}
 
 
 BVH_PATH = ("bvh_closest", "bvh_anyhit", "gather_planes", "count_less")
@@ -834,7 +999,9 @@ def phase_sweep(mesh_bvh, bounds, results):
     rays_mat = main_path_rays(data, config, cam)
     # K3 and K4 at the shapes this path gives them: its own tables at the
     # first bounce's indices, its emitter-select CDF at the first draws
-    require(len(rays_mat["gathers"]) == 6 and len(rays_mat["counts"]) == 1,
+    require({"tris.attrs", "spheres.attrs", "materials.params", "emitters.record",
+             "textures.emission"} <= set(rays_mat["gathers"])
+            and list(rays_mat["counts"]) == ["emitters.select_cdf"],
             "oracle_mat must gather from triangles, spheres, materials, emitters and "
             "textures and select among area emitters")
     check_gathers("oracle_mat", rays_mat["gathers"], results["kernels"]["gather_planes"],
@@ -1078,20 +1245,26 @@ def phase_oracle(results):
 
 
 def env_cases(data, n, seed):
-    """K3 on the env column CDF at seeded rows (some out of range) and K4 on
-    the env row CDF at seeded draws with the table's own values among them
-    (side='left' semantics)."""
+    """K4 on the env CDFs at seeded draws with the tables' own values among
+    them (side='left' semantics): the row CDF, and the column CDF at seeded
+    rows (some out of range) with draws equal to entries of their rows
+    (flat runs where a row is black)."""
     import torch
 
     em = data.emitters
     dev = em.env_col_cdf.device
     g = torch.Generator(device=dev).manual_seed(seed)
-    gathers = {"env_col_cdf": (em.env_col_cdf, torch.randint(
-        -3, em.env_col_cdf.shape[0] + 3, (n,), generator=g, device=dev, dtype=torch.int32))}
     cdf = em.env_row_cdf
     q = torch.rand(n, generator=g, device=dev)
     q[:cdf.shape[0]] = cdf
-    return gathers, {"env_row_cdf": (cdf, q)}
+    col = em.env_col_cdf
+    h, w1 = col.shape
+    rows = torch.randint(-3, h + 3, (n,), generator=g, device=dev, dtype=torch.int32)
+    q2 = torch.rand(n, generator=g, device=dev)
+    m = n // 4
+    j = torch.randint(0, w1, (m,), generator=g, device=dev)
+    q2[:m] = col[rows[:m].clamp(0, h - 1).long(), j]
+    return {"env_row_cdf": (cdf, q), "env_col_cdf seeded rows": (col, q2, rows)}
 
 
 def table_bytes(tris) -> dict:
@@ -1142,11 +1315,9 @@ def phase_big_env(tmp, bounds, results):
     lanes = pick_lanes(n, tris.packed.device)
     ks = results["kernels"]
     check_traversal("big_env", data, config, rays, lanes, ks, bounds, plain_subset=True)
-    gathers, counts = env_cases(data, n, seed=2)
-    check_gathers("big_env", {**rays["gathers"], **gathers}, ks["gather_planes"],
-                  bounds["gather_planes"])
-    check_counts("big_env", {**rays["counts"], **counts}, ks["count_less"],
-                 bounds["count_less"])
+    check_gathers("big_env", rays["gathers"], ks["gather_planes"], bounds["gather_planes"])
+    check_counts("big_env", {**rays["counts"], **env_cases(data, n, seed=2)},
+                 ks["count_less"], bounds["count_less"])
     del rays
     launches = phase_frame(data, config, cam, results, label="big_env")
 
@@ -1314,11 +1485,9 @@ def phase_instanced(tmp, bounds, results):
     lanes = pick_lanes(n, tr.packed.device)
     ks = results["kernels"]
     check_inst_traversal(data, config, rays, lanes, ks, bounds)
-    gathers, counts = env_cases(data, n, seed=3)
-    check_gathers("instanced", {**rays["gathers"], **gathers}, ks["gather_planes"],
-                  bounds["gather_planes"])
-    check_counts("instanced", {**rays["counts"], **counts}, ks["count_less"],
-                 bounds["count_less"])
+    check_gathers("instanced", rays["gathers"], ks["gather_planes"], bounds["gather_planes"])
+    check_counts("instanced", {**rays["counts"], **env_cases(data, n, seed=3)},
+                 ks["count_less"], bounds["count_less"])
     del rays
 
     # the same scene's baked tables on K1/K2 at equal seeds
@@ -2202,6 +2371,16 @@ def phase_ring_rounds(big, results):
     results.setdefault("parallel", {})["ring_d4"] = e
 
 
+def build(kernels) -> None:
+    log("[build] nvcc, one process per source")
+    kernels.build_all()
+    log(f"[build] {kernels.BUILD_SECONDS:.1f} s")
+    for stem, text in kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  {stem}: {line.strip()}")
+
+
 def main() -> int:
     if not (REPO / "pupiloptixlab_tpu_torch").is_dir():
         print("chip_smoke.py: the pupiloptixlab_tpu_torch package is not beside "
@@ -2226,13 +2405,7 @@ def main() -> int:
 
     from pupiloptixlab_tpu_torch import kernels, native
 
-    log("[build] nvcc, one process per source")
-    kernels.build_all()
-    log(f"[build] {kernels.BUILD_SECONDS:.1f} s")
-    for stem, text in kernels.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {stem}: {line.strip()}")
+    build(kernels)
     results["build_seconds"] = kernels.BUILD_SECONDS
     results["host_runtime"] = "C++" if native.available() else "numpy"
     log(f"[build] host BVH build and OBJ parser: {results['host_runtime']}")
@@ -2320,6 +2493,155 @@ def main() -> int:
     return 0
 
 
+def check_one_launch(data, rays, results) -> None:
+    """Each form of the K3 and K4 wrappers issues exactly one kernel, its
+    own, and no cast or copy beside it: one call of each under
+    torch.profiler (CUDA activity), on mesh_env's tables at the first
+    bounce's own indices and draws."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pupiloptixlab_tpu_torch.accel import gather as ga
+
+    g, c = rays["gathers"], rays["counts"]
+    mats, mat_id, _ = g["materials.params"]
+    em = data.emitters
+    row = c["env_col_cdf rows"][2]
+    forms = {
+        "K3 every column": ("gather_planes_kernel", lambda: ga.gather_cols(*g["tris.attrs"][:2])),
+        "K3 a column run": ("gather_planes_kernel", lambda: ga.gather_cols(*g["materials.params"])),
+        "K3 one column of a strided table": (
+            "gather_planes_kernel", lambda: ga.gather_cols(*g["materials.twosided"])),
+        "K3 a column list": ("gather_planes_kernel", lambda: ga.gather_cols(
+            data.textures.packed, mat_id, (1, 2, 3, 7, 13, 18))),
+        "K3 a view with unit strides": (
+            "gather_planes_kernel", lambda: ga.gather_cols(*g["env_row_pairs"][:2])),
+        "K3 one shared row": ("gather_planes_kernel", lambda: ga.gather_fields(
+            data.textures.packed, em.env_radiance_tex.reshape(1), (13,), n=row.shape[0])),
+        "K4 shared table": ("count_less_kernel", lambda: ga.count_less(*c["env_row_cdf"])),
+        "K4 row-indexed": ("count_less_kernel",
+                           lambda: ga.count_less(*c["env_col_cdf rows"][:2], rows=row)),
+    }
+    for _, fn in forms.values():
+        fn()
+    sentinel = torch.empty(1, device=row.device)
+    torch.cuda.synchronize()
+    # one profile over all the calls in turn, then a sentinel fill, so that a
+    # device record the profiler flushes late is the sentinel's, not a call's
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, fn in forms.values():
+            fn()
+        torch.cuda.synchronize()
+        sentinel.fill_(1.0)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    extra = names[len(forms):]
+    out = {}
+    for label, name in zip(forms, names):
+        log(f"  {label}: device op {name}")
+        out[label] = name
+    require(len(names) >= len(forms) and len(extra) <= 1
+            and all(k in n for (k, _), n in zip(forms.values(), names))
+            and not any("gather_planes" in n or "count_less" in n for n in extra),
+            f"each call must launch its own kernel once, in order: {names}")
+    results["one_launch_per_call"] = out
+
+
+def launch_path_us(results) -> None:
+    """Host microseconds a call of the pieces of a wrapper's launch path:
+    the current stream's handle two ways, an output allocation, one
+    data_ptr, K4's bare ctypes launch, and K4's whole wrapper on a
+    1-element query beside searchsorted."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import gather as ga
+
+    dev = torch.device(DEV, torch.cuda.current_device())
+    t = torch.zeros(64, device=dev)
+    q = torch.zeros(1, device=dev)
+    probes = {
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "kernels.stream_ptr": lambda: kernels.stream_ptr(dev),
+        "torch.empty": lambda: torch.empty(1, device=dev),
+        "data_ptr": t.data_ptr,
+        "count_less (1 query)": lambda: ga.count_less(t, q),
+        "searchsorted (1 query)": lambda: torch.searchsorted(t, q),
+    }
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        probes["_cuda_getCurrentRawStream"] = lambda: raw(dev.index)
+    # K4's ctypes call alone, its output made once
+    k4 = kernels.launcher("count_less")
+    o = torch.empty(1, dtype=torch.int32, device=dev)
+    args = (t.data_ptr(), 1, 64, 64, q.data_ptr(), None, 1, o.data_ptr(), kernels.stream_ptr(dev))
+    probes["K4 ctypes launch alone"] = lambda: k4(*args)
+    probes["t.new_empty"] = lambda: t.new_empty(1)
+    probes["torch.empty(dtype)"] = lambda: torch.empty(1, dtype=torch.int32, device=dev)
+    # a caller's stream: the wrappers launch on it
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        on_side = kernels.stream_ptr(dev) == side.cuda_stream
+        got = ga.count_less(t, q)
+    side.synchronize()
+    require(on_side and int(got[0]) == 0,
+            "kernels.stream_ptr must give the stream of a torch.cuda.stream context")
+    results["stream_context_honoured"] = on_side
+    out = {}
+    for name, fn in probes.items():
+        fn()
+        reps = 2000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    log(f"  launch path, host us a call: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    results["launch_path_us"] = out
+
+
+def main_tables(label: str) -> int:
+    """``--tables``: only K3 and K4, at mesh_env's and oracle_mat's shapes
+    (phases 3 and 5's cases, each held against its plain version and timed:
+    events, device and issue time beside the library call), and the launch
+    path's pieces. With ``--package DIR`` the package is imported from DIR,
+    so that a parent tree's kernels run under this script's timing in the
+    same call. Prints the card's line, then the results as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+
+    log(f"[tables] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "package": str(Path(kernels.__file__).parent), "kernels": {}}
+    with torch.inference_mode():
+        data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
+        rays = main_path_rays(data, config, cam)
+        bounds = check_mesh_env_tables(data, rays, results)
+        check_one_launch(data, rays, results)
+        del data, rays
+        data, config, cam = load_tables(ORACLE_MAT, *FILM, DEV)
+        rays = main_path_rays(data, config, cam)
+        check_gathers("oracle_mat", rays["gathers"], results["kernels"]["gather_planes"],
+                      bounds["gather_planes"])
+        check_counts("oracle_mat", rays["counts"], results["kernels"]["count_less"],
+                     bounds["count_less"])
+        del data, rays
+        launch_path_us(results)
+    results["label"] = label
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def kernels_line(results, runs) -> list:
     """Each kernel's launches over the runs of the main paths it is on (each
     run had the counts set to 0 just before and read just after): the paths
@@ -2336,9 +2658,28 @@ def kernels_line(results, runs) -> list:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
+            **({"row_form": k["row_form"]} if "row_form" in k else {}),
         })
     return line
 
 
+def cli() -> int:
+    """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
+    K3/K4 alone (main_tables), with the package imported from DIR."""
+    args = sys.argv[1:]
+    if not args:
+        return main()
+    if args[0] != "--tables" or len(args) not in (2, 4) or (
+            len(args) == 4 and args[2] != "--package"):
+        print("usage: chip_smoke.py [--tables LABEL [--package DIR]]", file=sys.stderr)
+        return 2
+    root = Path(args[3]).resolve() if len(args) == 4 else REPO
+    if not (root / "pupiloptixlab_tpu_torch").is_dir():
+        print(f"chip_smoke.py: no pupiloptixlab_tpu_torch package in {root}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    return main_tables(args[1])
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

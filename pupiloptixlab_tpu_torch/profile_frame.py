@@ -9,8 +9,14 @@ activities). One JSON line per scene gives the host ms/frame with and
 without the profiler, the device time per frame (sum of the CUDA events),
 the device's busy share (union of those events over the first-to-last
 window), device ops per frame, the launches of the port's kernels per frame,
-and the device ms per frame of the costliest kernels by name. Needs a CUDA
+the device ms per frame of each of the port's kernels (csrc/*.cu) and of
+the costliest kernels by name, and the peak device memory
+(``max_memory_allocated``) over the timed and profiled frames. Needs a CUDA
 card; raises without one.
+
+It uses only ``flatten_scene``, ``camera_block_from_scene`` and
+``render_frame``, so the same file can profile another tree's package:
+``PYTHONPATH=<tree> python3 pupiloptixlab_tpu_torch/profile_frame.py ...``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ import torch
 
 FILM = (1920, 1080)
 FRAMES = 2
+# the port's kernels by their __global__ names in csrc/*.cu
+PORT_KERNELS = ("gather_planes_kernel", "count_less_kernel", "bvh_closest_kernel",
+                "bvh_anyhit_kernel", "sweep_closest_kernel", "sweep_anyhit_kernel",
+                "atrous_iter_kernel")
 
 
 def _busy_us(ranges) -> float:
@@ -75,6 +85,7 @@ def profile_scene(xml: str, top: int = 15) -> dict:
         torch.cuda.synchronize()
 
     frames(2)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     frames(FRAMES)
     host_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
@@ -94,6 +105,11 @@ def profile_scene(xml: str, top: int = 15) -> dict:
     window = max(r[1] for r in ranges) - min(r[0] for r in ranges)
     device_ms = sum(by_name.values()) / 1e3 / FRAMES
     costliest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    port: dict[str, float] = defaultdict(float)
+    for name, us in by_name.items():
+        for k in PORT_KERNELS:
+            if k in name:
+                port[k] += us / 1e3 / FRAMES
     return {
         "scene": xml, "film": list(FILM), "max_depth": config.max_depth,
         "instanced": config.instanced, "tri_count": config.tri_count,
@@ -101,6 +117,9 @@ def profile_scene(xml: str, top: int = 15) -> dict:
         "device_ms_per_frame": device_ms, "busy_share": _busy_us(ranges) / window,
         "device_ops_per_frame": len(events) / FRAMES, "launches_per_frame": launches,
         "costliest_ms_per_frame": {k: v / 1e3 / FRAMES for k, v in costliest},
+        "port_kernel_ms_per_frame": dict(port),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "package": kernels.__file__,
         "device": torch.cuda.get_device_name(0),
     }
 

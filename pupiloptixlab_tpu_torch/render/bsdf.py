@@ -42,7 +42,7 @@ from pupiloptixlab_tpu_torch.render.sampling import (
     refract,
     refract_z,
 )
-from pupiloptixlab_tpu_torch.render.texture import sample_texture_cols
+from pupiloptixlab_tpu_torch.render.texture import gather_texture, sample_texture_cols
 from pupiloptixlab_tpu_torch.render.vec import Vec2, Vec3, where
 
 # Material type ids (must match scene.materials.MatType).
@@ -97,13 +97,14 @@ def get_local_bsdf(
     tex_kinds: tuple[int, ...] = (0, 1, 2),
     tex_filters: tuple[int, ...] = (0, 1),
 ) -> LocalBsdf:
-    mcol = gather_cols(materials.packed, mat_id)  # one gather for all params
+    # one gather for all params: columns 0..MAT_DISPERSION, all it reads
+    mcol = gather_cols(materials.packed, mat_id, cols=tuple(range(MAT_DISPERSION + 1)))
     zeros3 = _zeros3(mcol[0])
 
     def slot(idx, needed_by):
         if any(t in mat_types for t in needed_by):
             tex_id = mcol[MAT_TEX0 + idx].to(torch.int32)
-            cols = gather_cols(textures.packed, tex_id)
+            cols = gather_texture(textures, tex_id, tex_kinds, tex_filters)
             return sample_texture_cols(
                 cols, textures.pool, uv, tex_kinds, tex_filters,
                 textures.pool_bi,

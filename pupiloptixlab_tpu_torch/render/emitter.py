@@ -4,8 +4,9 @@ Mirrors pupiloptixlab_tpu/render/emitter.py (render/emitter.h +
 emitter/{area,sphere,env}.h parity): selection by the per-emitter CDF
 with environment fallback, triangle-area / sphere / point / directional
 SampleDirect and Eval, envmap importance sampling over the row and column
-CDFs (the row CDF is inverted by ``count_less``), and the constant env
-with its true 1/2pi sampling density.
+CDFs (both inverted by ``count_less``: the row CDF shared by every lane,
+the column CDF in the sampled row), and the constant env with its true
+1/2pi sampling density.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from pupiloptixlab_tpu_torch.accel.gather import count_less, gather_cols
+from pupiloptixlab_tpu_torch.accel.gather import count_less, gather_cols, gather_fields
 from pupiloptixlab_tpu_torch.flatten.types import (
     EM_AREA,
     EM_ETYPE,
@@ -46,7 +47,7 @@ from pupiloptixlab_tpu_torch.render.sampling import (
     uniform_sample_sphere,
     uniform_sample_triangle,
 )
-from pupiloptixlab_tpu_torch.render.texture import sample_texture_cols
+from pupiloptixlab_tpu_torch.render.texture import gather_texture, sample_texture_cols
 from pupiloptixlab_tpu_torch.render.vec import Vec2, Vec3, where, where2
 
 
@@ -98,7 +99,8 @@ def sample_direct(
     """``allow_env=False`` promises every lane has use_env=False and skips
     the env CDF inversion."""
     has_env = config.has_env and allow_env
-    row = gather_cols(em.packed, idx)  # one gather for the emitter record
+    # one gather for the emitter record: columns 0..EM_ETYPE, all it reads
+    row = gather_cols(em.packed, idx, cols=tuple(range(EM_ETYPE + 1)))
     select_prob = row[EM_SELECT_PROB]
     if config.emitter_count == 0 or has_env:
         select_prob = torch.where(use_env, em.env_select_prob, select_prob)
@@ -126,7 +128,8 @@ def sample_direct(
         nrm = where(is_tri, nrm, sph_dir)
         uv = where2(is_tri, uv, uv_sph)
 
-    tex_cols = gather_cols(tex.packed, row[EM_RAD_TEX].to(torch.int32))
+    tex_cols = gather_texture(tex, row[EM_RAD_TEX].to(torch.int32), config.em_tex_kinds,
+                              config.em_tex_filters)
     radiance = sample_texture_cols(
         tex_cols, tex.pool, uv, config.em_tex_kinds, config.em_tex_filters,
         tex.pool_bi,
@@ -203,13 +206,11 @@ def _env_sample_direct(em, tex, config, hit_pos: Vec3, hit_normal: Vec3, u1, u2)
             "pdf": uniform_hemisphere_pdf(local),
         }
     # envmap importance sampling (env.h:24-48): the row CDF with u1, then
-    # that row's column CDF (one plane gather of the (h, w+1) table)
+    # that row's column CDF with u2, each a count of the entries below the
+    # draw (the column count searches each lane's own row of the (h, w+1)
+    # table; every row is nondecreasing)
     row = torch.clamp(count_less(em.env_row_cdf, u1) - 1, 0, h - 1)
-    col_cdf_rows = gather_cols(em.env_col_cdf, row)  # (w+1, N)
-    col = torch.clamp(
-        (col_cdf_rows < u2[None, :]).sum(0, dtype=torch.int32) - 1, 0, w - 1
-    )
-    del col_cdf_rows
+    col = torch.clamp(count_less(em.env_col_cdf, u2, rows=row) - 1, 0, w - 1)
 
     phi = col.to(torch.float32) * (2.0 * math.pi / w)
     theta = row.to(torch.float32) * (math.pi / h)
@@ -226,9 +227,8 @@ def _env_sample_direct(em, tex, config, hit_pos: Vec3, hit_normal: Vec3, u1, u2)
     )
     # radiance of the CDF-chosen texel straight from the pixel pool, so
     # radiance and pdf refer to the same texel
-    rad_id = em.env_radiance_tex.to(torch.int32).expand(n)
-    tex_cols = gather_cols(tex.packed, rad_id)
-    texel = tex_cols[TEX_OFFSET].to(torch.int32) + row_c * w + col
+    offset = gather_cols(tex.packed, em.env_radiance_tex.reshape(1), cols=(TEX_OFFSET,))[0]
+    texel = offset.to(torch.int32) + row_c * w + col
     pool_cols = gather_cols(tex.pool, texel)
     radiance = Vec3(pool_cols[0], pool_cols[1], pool_cols[2]) * em.env_scale
     row_w = gather_cols(em.env_row_weight[:, None], row_c)[0]
@@ -260,14 +260,15 @@ def eval_hit_emitter(
     (radiance Vec3, pdf (N,), select_prob (N,)); valid where
     emitter_id >= 0."""
     idx = torch.clamp(emitter_id, min=0)
-    row = gather_cols(em.packed, idx)
+    row = gather_fields(em.packed, idx, (EM_AREA, EM_SELECT_PROB, EM_RAD_TEX))
     dir_to_scatter = (scatter_pos - hit_pos).normalized()
     lnol = hit_normal.dot(dir_to_scatter)
     dist = (scatter_pos - hit_pos).length()
     pdf = torch.where(
         lnol > 0.0, dist * dist / torch.clamp(lnol * row[EM_AREA], min=1e-20), 0.0
     )
-    tex_cols = gather_cols(tex.packed, row[EM_RAD_TEX].to(torch.int32))
+    tex_cols = gather_texture(tex, row[EM_RAD_TEX].to(torch.int32), config.em_tex_kinds,
+                              config.em_tex_filters)
     radiance = sample_texture_cols(
         tex_cols, tex.pool, hit_uv, config.em_tex_kinds, config.em_tex_filters,
         tex.pool_bi,
@@ -307,8 +308,8 @@ def eval_env(
     phi = math.pi - torch.atan2(d.x, d.z)
     theta = torch.acos(torch.clamp(d.y, -1.0, 1.0))
     uv = Vec2(phi * 0.5 / math.pi, theta / math.pi)
-    rad_id = em.env_radiance_tex.to(torch.int32).expand(n)
-    tex_cols = gather_cols(tex.packed, rad_id)
+    tex_cols = gather_texture(tex, em.env_radiance_tex.reshape(1), (2,), (config.env_filter,),
+                              n=n)
     radiance = (
         sample_texture_cols(
             tex_cols, tex.pool, uv, (2,), (config.env_filter,), tex.pool_bi
@@ -319,7 +320,7 @@ def eval_env(
     row = torch.clamp(rowf.to(torch.int32), 0, h - 2)
     frac = rowf - row.to(torch.float32)
     if h > 1:
-        pairs = torch.stack([em.env_row_weight[:-1], em.env_row_weight[1:]], dim=1)
+        pairs = em.env_row_weight.unfold(0, 2, 1)  # (h-1, 2) view: rows i, i+1
         w_pair = gather_cols(pairs, row)
         weight = w_pair[0] * (1.0 - frac) + w_pair[1] * frac
     else:

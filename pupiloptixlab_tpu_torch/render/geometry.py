@@ -118,7 +118,8 @@ def get_local_geometry(
         a[TRI_UV0.start + 1] * w0 + a[TRI_UV1.start + 1] * w1 + a[TRI_UV2.start + 1] * w2,
     )
     if instanced:
-        ic = gather_cols(scene.tris.inst_packed, hit.inst)  # (16, N)
+        ic = gather_cols(scene.tris.inst_packed, hit.inst,
+                         cols=tuple(range(INST_W2O0 + 1)))  # (12, N) of 16
         # object -> world normal: inverse-transpose 3x3 (flip folded in)
         nrm_tri = Vec3(
             ic[0] * nrm_tri.x + ic[1] * nrm_tri.y + ic[2] * nrm_tri.z,
@@ -139,7 +140,7 @@ def get_local_geometry(
         # spheres (geometry.h:82-89): one packed-column gather of the
         # flattened w2o rows + ids
         sp = torch.clamp(prim, max=spheres.attrs.shape[0] - 1)
-        c = gather_cols(spheres.attrs, sp)  # (16, N)
+        c = gather_cols(spheres.attrs, sp, cols=tuple(range(SPH_FLIP + 1)))  # (15, N) of 16
 
         def w2o_apply(i):
             return (
@@ -170,7 +171,7 @@ def get_local_geometry(
         # position (cone flank when 0 < y < d2, the sphere caps otherwise)
         is_curve = hit.kind == 2
         cp = torch.clamp(prim, max=scene.curves.packed.shape[0] - 1)
-        cc = gather_cols(scene.curves.packed, cp)  # (12, N)
+        cc = gather_cols(scene.curves.packed, cp, cols=tuple(range(CRV_UV1 + 1)))  # (11, N) of 12
         pa_ = Vec3(cc[CRV_P0.start], cc[CRV_P0.start + 1], cc[CRV_P0.start + 2])
         pb_ = Vec3(cc[CRV_P1.start], cc[CRV_P1.start + 1], cc[CRV_P1.start + 2])
         ra, rb = cc[CRV_R0], cc[CRV_R1]
@@ -199,10 +200,7 @@ def get_local_geometry(
 
     # twosided flip toward viewer (geometry.h:91-95)
     front = (-rd).dot(normal) >= 0.0
-    twosided = (
-        gather_cols(scene.materials.packed[:, MAT_TWOSIDED:MAT_TWOSIDED + 1], mat_id)[0]
-        > 0.5
-    )
+    twosided = gather_cols(scene.materials.packed, mat_id, cols=(MAT_TWOSIDED,))[0] > 0.5
     normal = where(~front & twosided, -normal, normal)
 
     return LocalGeometry(

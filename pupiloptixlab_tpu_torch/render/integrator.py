@@ -54,7 +54,7 @@ from pupiloptixlab_tpu_torch.render.sampling import (
     to_local,
     to_world,
 )
-from pupiloptixlab_tpu_torch.render.texture import sample_texture_cols
+from pupiloptixlab_tpu_torch.render.texture import gather_texture, sample_texture_cols
 from pupiloptixlab_tpu_torch.render.vec import Vec3, where
 
 _TINY = 1e-12
@@ -158,8 +158,9 @@ def primary_rays(camera: CameraBlock, config: RenderConfig, seed: int, pix: torc
 def _first_hit_emission(scene, config, geo) -> Vec3:
     """GetRadiance at the hit uv (main.cu:87-92)."""
     em, tex = scene.emitters, scene.textures
-    erow = gather_cols(em.packed, torch.clamp(geo.emitter_id, min=0))
-    trow = gather_cols(tex.packed, erow[EM_RAD_TEX].to(torch.int32))
+    rad_tex = gather_cols(em.packed, torch.clamp(geo.emitter_id, min=0), cols=(EM_RAD_TEX,))
+    trow = gather_texture(tex, rad_tex[0].to(torch.int32), config.em_tex_kinds,
+                          config.em_tex_filters)
     return sample_texture_cols(
         trow, tex.pool, geo.uv, config.em_tex_kinds, config.em_tex_filters,
         tex.pool_bi,

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from pupiloptixlab_tpu_torch.accel.gather import gather_cols
+import functools
+
+from pupiloptixlab_tpu_torch.accel.gather import Fields, gather_cols, gather_fields
 from pupiloptixlab_tpu_torch.flatten.types import (
     TEX_ADDRESS,
     TEX_FILTER,
@@ -48,15 +50,46 @@ def _fetch(pool, offset, w, h, ix, iy) -> Vec3:
     return Vec3(cols[0], cols[1], cols[2])
 
 
+@functools.lru_cache(maxsize=None)
+def texture_cols(kinds: tuple[int, ...] = ALL_KINDS, filters: tuple[int, ...] = (0, 1),
+                 quads: bool = True) -> tuple[int, ...]:
+    """The TextureTable.packed columns ``sample_texture_cols`` reads for
+    these kinds and filters (``quads``: the quad pool is in use), in order:
+    all a constant-colour call site reads is TEX_RGB, 3 of 24 columns."""
+    cols = set(range(TEX_RGB.start, TEX_RGB.stop))
+    if tuple(kinds) != (0,):
+        cols |= {TEX_KIND, *range(TEX_UVT.start, TEX_UVT.stop)}
+        if 1 in kinds:
+            cols |= set(range(TEX_PATCH2.start, TEX_PATCH2.stop))
+        if 2 in kinds:
+            cols |= {TEX_W, TEX_H, TEX_ADDRESS, TEX_OFFSET}
+            if 1 in filters and quads:
+                cols.add(TEX_OFFSET_BI)
+            if 0 in filters and 1 in filters:
+                cols.add(TEX_FILTER)
+    return tuple(sorted(cols))
+
+
+def gather_texture(tex: TextureTable, tex_id: torch.Tensor, kinds: tuple[int, ...],
+                   filters: tuple[int, ...], n: int | None = None) -> Fields:
+    """The descriptor columns of textures ``tex_id`` that
+    ``sample_texture_cols`` reads for ``kinds`` and ``filters``, one K3
+    launch; with ``n``, ``tex_id`` is one id that n lanes share."""
+    cols = texture_cols(tuple(kinds), tuple(filters), tex.pool_bi.shape[0] > 1)
+    return gather_fields(tex.packed, tex_id, cols, n)
+
+
 def sample_texture_cols(
-    cols: torch.Tensor,
+    cols: torch.Tensor | Fields,
     pool: torch.Tensor,
     uv: Vec2,
     kinds: tuple[int, ...] = ALL_KINDS,
     filters: tuple[int, ...] = (0, 1),
     pool_bi: torch.Tensor | None = None,
 ) -> Vec3:
-    """Sample from pre-gathered packed descriptor columns (TEX_COLS, N).
+    """Sample from pre-gathered packed descriptor columns: (TEX_COLS, N)
+    planes, or the ``Fields`` of ``gather_texture`` (``cols[c]`` is column
+    c's plane either way).
 
     ``pool_bi``: the flattener's (Q, 12) quad pool — when present (Q > 1)
     a bilinear fetch is one gather of the packed 2x2 footprint instead of
@@ -150,5 +183,5 @@ def sample_texture(
     filters: tuple[int, ...] = (0, 1),
 ) -> Vec3:
     """Sample texture ``tex_id`` (N,) at ``uv`` -> Vec3 linear rgb."""
-    cols = gather_cols(tex.packed, tex_id)
+    cols = gather_texture(tex, tex_id, kinds, filters)
     return sample_texture_cols(cols, tex.pool, uv, kinds, filters, tex.pool_bi)

@@ -4,12 +4,16 @@ The port's wrappers run their plain versions for CPU tensors; these are
 held bit for bit against the reference's Pallas kernels in interpret mode
 (the one-hot matmul gather for tables of <= 2048 rows, the transpose kernel
 behind the native gather above that, the linear count) and against XLA's
-``table[idx]`` / ``searchsorted``. Tolerance: exact (a gather is a copy,
-a count an integer).
+``table[idx]`` / ``searchsorted``. The port's own forms, column-selected
+gathers (``cols=``) and the row-indexed count (``rows=``, the envmap's
+column inversion), are held against the reference's whole-row gathers and
+its gather-compare-sum. Tolerance: exact (a gather is a copy, a count an
+integer).
 """
 
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +32,8 @@ from pupiloptixlab_tpu_torch.accel.gather import (
     count_less,
     count_less_plain,
     gather_cols,
+    gather_fields,
+    gather_planes,
     gather_planes_plain,
     gather_rows,
 )
@@ -156,4 +162,126 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="float32"):
         count_less(torch.zeros(10, dtype=torch.float64, device="meta"),
                    torch.zeros(5, device="meta"))
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+# --- the port's own forms: column selection and the row-indexed count ---------
+
+def test_env_cdfs_are_nondecreasing(mesh_env_tables):
+    """The row-indexed count is a binary search: it equals the linear count
+    only on nondecreasing rows, which the flattened env CDFs must be."""
+    em = mesh_env_tables.emitters
+    row, col = em.env_row_cdf, em.env_col_cdf
+    assert bool((row[1:] >= row[:-1]).all())
+    assert tuple(col.shape) == (64, 129)
+    assert bool((col[:, 1:] >= col[:, :-1]).all())
+
+
+def test_row_count_matches_reference_column_inversion(mesh_env_tables):
+    """count_less(env_col_cdf, u2, rows=row) against the reference's envmap
+    column inversion (render/emitter.py: gather_cols of the whole row, then
+    sum(rows < u2)) and jnp.searchsorted in each row, on mesh_env's table
+    with a black row appended (its CDF is 0 except the last entry, 1.0, as
+    flatten gives it): exact table values, a flat run of equal draws, rows
+    out of range."""
+    col = mesh_env_tables.emitters.env_col_cdf.numpy()
+    black = np.zeros((1, col.shape[1]), np.float32)
+    black[0, -1] = 1.0
+    table = np.concatenate([col, black])
+    h = table.shape[0]
+    r = np.random.default_rng(7)
+    n = 4096
+    rows = r.integers(-2, h + 2, n).astype(np.int32)
+    rows[:256] = h - 1  # the black row
+    u2 = r.random(n, dtype=np.float32)
+    safe = np.clip(rows, 0, h - 1)
+    j = r.integers(0, table.shape[1], n)
+    u2[256:1280] = table[safe[256:1280], j[256:1280]]  # exact entries of each row
+    u2[1280:1536] = u2[1280]  # a flat run of draws
+    u2[:64] = 0.0
+    got = count_less(torch.from_numpy(table), torch.from_numpy(u2), rows=torch.from_numpy(rows))
+    assert got.dtype == torch.int32
+    jt, ju, jr = jnp.asarray(table), jnp.asarray(u2), jnp.asarray(rows)
+    want = np.asarray(jnp.sum(jax_gather_cols(jt, jr) < ju[None, :], axis=0))
+    np.testing.assert_array_equal(got.numpy(), want)
+    per_row = jax.vmap(lambda t, x: jnp.searchsorted(t, x, side="left"))(
+        jt[jnp.clip(jr, 0, h - 1)], ju)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(per_row))
+    assert int(got[:64].max()) == 0 and int(got[256:1280].min()) >= 0
+
+
+@pytest.mark.parametrize("name,cols", [("attrs", (15, 16)), ("attrs", (0, 1, 2, 9, 25)),
+                                       ("materials", (1,)), ("textures", (1, 2, 3)),
+                                       ("textures", (13, 7, 18))])
+def test_column_selection_matches_full_gather_and_reference(mesh_env_tables, name, cols):
+    d = mesh_env_tables
+    table = {"attrs": d.tris.attrs, "materials": d.materials.packed,
+             "textures": d.textures.packed}[name]
+    r = np.random.default_rng(len(cols))
+    idx = torch.from_numpy(r.integers(-3, table.shape[0] + 3, 2048).astype(np.int32))
+    got = gather_cols(table, idx, cols)
+    assert tuple(got.shape) == (len(cols), 2048)
+    full = gather_cols(table, idx)
+    assert torch.equal(got, full[list(cols)])
+    ref = np.asarray(jax_gather_cols(jnp.asarray(table.numpy()), jnp.asarray(idx.numpy())))
+    np.testing.assert_array_equal(got.numpy(), ref[list(cols)])
+    fields = gather_fields(table, idx, cols)
+    for c in cols:
+        assert torch.equal(fields[c], full[c])
+
+
+def test_gathers_read_strided_tables_in_place():
+    """A column slice and a view with unit strides gather as their copies
+    do; an index out of range clamps."""
+    r = np.random.default_rng(3)
+    base = torch.from_numpy(_table(r, 40, 16))
+    idx = torch.tensor([-4, 0, 7, 39, 55, 12], dtype=torch.int32)
+    sliced = base[:, 5:11]
+    assert not sliced.is_contiguous()
+    want = gather_cols(sliced.contiguous(), idx)
+    assert torch.equal(gather_cols(sliced, idx), want)
+    assert torch.equal(gather_cols(sliced, idx, (1, 4)), want[[1, 4]])
+    assert torch.equal(gather_cols(base, idx, (6, 9)), want[[1, 4]])
+    w = torch.from_numpy(r.random(9, dtype=np.float32))
+    pairs = w.unfold(0, 2, 1)  # (8, 2), strides (1, 1)
+    want = torch.stack([w[:-1], w[1:]], dim=1)[idx.clamp(0, 7).long()].T
+    assert torch.equal(gather_cols(pairs, idx), want)
+    one = gather_fields(base, torch.tensor([3], dtype=torch.int32), (2, 8), n=5)
+    assert tuple(one.planes.shape) == (2, 5) and bool((one[8] == base[3, 8]).all())
+
+
+@pytest.mark.parametrize("cols", [(), (16,), (-1,), (0, 2.0), "0"])
+def test_bad_column_selections_raise(cols):
+    table = torch.zeros((4, 16))
+    with pytest.raises(ValueError, match="cols"):
+        gather_cols(table, torch.zeros(3, dtype=torch.int32), cols)
+
+
+@pytest.mark.parametrize("rows", [torch.zeros(5, dtype=torch.int64), torch.zeros(5),
+                                  torch.zeros(4, dtype=torch.int32),
+                                  torch.zeros((5, 1), dtype=torch.int32)])
+def test_bad_rows_raise(rows):
+    with pytest.raises(ValueError, match="rows"):
+        count_less(torch.zeros((3, 8)), torch.rand(5), rows=rows)
+    with pytest.raises(ValueError, match="table"):
+        count_less(torch.zeros(8), torch.rand(5), rows=torch.zeros(5, dtype=torch.int32))
+
+
+def test_device_forms_reach_the_launcher(monkeypatch):
+    """Column-selected gathers and the row-indexed count on tensors off the
+    CPU go to the kernel launcher too (which raises here)."""
+    def no_launcher(name):
+        raise RuntimeError(f"launch {name}")
+
+    monkeypatch.setattr(kernels, "launcher", no_launcher)
+    kernels.reset_launches()
+    table = torch.zeros((10, 16), device="meta")
+    idx = torch.zeros(5, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="launch gather_planes"):
+        gather_planes(table[:, 3:9], idx, (0, 5))
+    with pytest.raises(RuntimeError, match="launch count_less"):
+        count_less(torch.zeros((4, 9), device="meta"), torch.zeros(5, device="meta"),
+                   rows=idx)
+    with pytest.raises(ValueError, match="idx"):
+        gather_planes(table, idx.long(), (1,))
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -325,3 +325,41 @@ def test_envmap_sampling_covers_the_map():
                              ju1, ju2)
     _assert_match(got, want)
     assert (got.pdf > 0).float().mean() > 0.99
+
+
+def test_first_hit_emission(scenes):
+    """_first_hit_emission through the column-selected gathers (the emitter
+    record's radiance-texture column, the texture columns its kinds read)
+    against the reference's whole-row gathers."""
+    from types import SimpleNamespace
+
+    from pupiloptixlab_tpu.render import integrator as jint
+    from pupiloptixlab_tpu_torch.render import integrator as tint
+
+    (jd, jc), (td, tc) = scenes
+    r = np.random.default_rng(6)
+    eid = np.where(r.random(N) < 0.7, r.integers(0, max(tc.emitter_count, 1), N), -1)
+    uv = r.random((2, N), dtype=np.float32) * 3.0 - 1.0
+    (je, *jw), (te, *tw) = _both([eid.astype(np.int32), *uv])
+    _assert_match(
+        tint._first_hit_emission(td, tc, SimpleNamespace(emitter_id=te, uv=TVec2(*tw))),
+        jint._first_hit_emission(jd, jc, SimpleNamespace(emitter_id=je, uv=JVec2(*jw))),
+    )
+
+
+@pytest.mark.parametrize("kinds,filters", [((0,), (0,)), ((1,), (0, 1)), ((2,), (1,)),
+                                           ((0, 1, 2), (0, 1)), ((0, 2), (0,))])
+def test_texture_cols_hold_what_sampling_reads(kinds, filters, tmp_path_factory):
+    """sample_texture_cols on gather_texture's columns equals it on whole
+    texture records, for every kind and filter set, bit for bit (the lights
+    scene holds every texture kind and both filters)."""
+    _, (td, _) = _scene("lights", tmp_path_factory)
+    tex = td.textures
+    r = np.random.default_rng(len(kinds) + 3 * len(filters))
+    ids = torch.from_numpy(r.integers(0, tex.packed.shape[0], N).astype(np.int32))
+    uv = TVec2(*torch.from_numpy(r.random((2, N), dtype=np.float32) * 4.0 - 1.5))
+    full = ttex.gather_cols(tex.packed, ids)
+    fields = ttex.gather_texture(tex, ids, kinds, filters)
+    assert len(fields.planes) == len(ttex.texture_cols(kinds, filters, tex.pool_bi.shape[0] > 1))
+    _assert_match(ttex.sample_texture_cols(fields, tex.pool, uv, kinds, filters, tex.pool_bi),
+                  ttex.sample_texture_cols(full, tex.pool, uv, kinds, filters, tex.pool_bi))
