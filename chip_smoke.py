@@ -3,9 +3,10 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 K3 and K4 alone:                  python3 chip_smoke.py --tables LABEL [--package DIR]
+K7 and K8 alone:                  python3 chip_smoke.py --inst LABEL [--package DIR]
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
-timing in the same call; main_tables says what it runs.)
+timing in the same call; main_tables and main_inst say what they run.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -83,17 +84,28 @@ Phases (each fails the run on its first fault; nothing is caught):
               K8, K3, K4 must launch, K1, K2, K5, K6 must not); K7 on primary
               and bounce rays, K8 on shadow rays exact against their plain
               leaf scans on 65,536-lane subsets (t bit-equal, row and leaf
-              equal, flags equal) and timed at full N; K3 on the instance
-              tables (I,12) and (I,16) and the rest of the path's tables, K4
-              on its env CDF; the instanced frame against the same scene's
+              equal, flags equal) and timed at full N (events around the
+              wrapper, and a bare launch's device time apart from its issue
+              time); the sub-leaf gates (check_subleaf_gates): K7 and K8 with
+              the sub-leaf table against the same kernels with an all-pass
+              table (the full leaf scan) on all 2,073,600 lanes of the
+              primary, bounce, shadow, unjittered and vertical rays (t
+              bit-equal, rows, leaves and flags equal), the last two also
+              against the plain scans on 16,384 lanes, and a tie across two
+              groups of one leaf that K7 must give to the lower row; K3 on
+              the instance tables (I,12) and (I,16) and the rest of the
+              path's tables, K4 on its env CDF; the instanced frame against
+              the same scene's
               baked tables (524,290 rows on K1/K2) at equal seeds (99.5% of
               pixels within 2e-3, mean ratio within 2e-3); card against CPU
               frames at a 32x18 film (the phase 7 limits)
  12. refit    World.render_objects moves one instance and hides another, on
               the instanced scene and on mesh_env (baked): get_scene_data must
               refit without a flatten (counted), keep the instanced object
-              tables as they are, and give a fresh flatten's tables on live
-              rows; refit and fresh flatten are timed
+              tables (the sub-leaf boxes too) as they are, and give a fresh
+              flatten's tables on live rows; refit and fresh flatten are
+              timed; after the instanced edit K7 on 8,192 lanes of the
+              primary rays against the plain leaf scan
  13. denoise  K9 (atrous_iter) alone on bench.py's inputs (seed 3: random colour
               and albedo, unit normals) at 1920x1080, guided and unguided: each
               of the 5 launches of a denoise against its plain version on the
@@ -151,7 +163,8 @@ written once) over 3.35 TB/s and the float operations this run's rays need
 over 67 TFLOP/s (FP32 outside the tensor cores), both from the H100 SXM data
 sheet. For the traversals and the culled sweep the operations are a floor
 counted from this run's rays (the box tests every live ray must make and
-the one leaf or chunk every hit ray must test). K9's operations are counted
+the one leaf or chunk every hit ray must test; K7/K8: the ray transform
+and one row test a hit, whatever the kernel tests). K9's operations are counted
 per tap (41 guided, 18 unguided) plus 10 per pixel, as csrc/atrous.cu says.
 
 In the {"kernels": [...]} line each kernel's ms, plain_ms, library_ms and
@@ -1346,20 +1359,55 @@ def phase_big_env(tmp, bounds, results):
     return launches, (data, config, cam)
 
 
+def inst_tables(tris) -> tuple:
+    """K7/K8's table arguments after the rays, with the sub-leaf boxes
+    where the package has them (a tree before the sub-leaf level, run with
+    --inst --package, takes seven)."""
+    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes, tris.leaf_start,
+            tris.leaf_inst, tris.inst_w2o)
+    sub = getattr(tris, "subleaf_boxes", None)
+    return tabs if sub is None else (*tabs, sub)
+
+
+def inst_device_ms(name, full, tabs, config, tris, want) -> tuple[float, float]:
+    """(device ms, issue ms) of one K7 or K8 launch at full N through its
+    ctypes launcher alone (split_time_ms): the wrappers read the fault flag
+    after each launch, which waits for the card, so a wrapper call cannot
+    run ahead of it. The launches' outputs must equal ``want`` (the
+    wrapper's) and leave the flag clear."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+
+    dev = full[0].device
+    outs = [torch.empty_like(w) for w in want]
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (*(p.data_ptr() for p in full), *(t.data_ptr() for t in tabs), full[0].shape[0],
+            tris.packed.shape[0], config.bvh_tcl, tris.bvh_axis.shape[0],
+            tris.leaf_start.shape[0], *(o.data_ptr() for o in outs), err.data_ptr(),
+            kernels.stream_ptr(dev))
+    fn = kernels.launcher(name)
+    dev_ms, issue_ms = split_time_ms(lambda: kernels.check(fn(*args), name), reps=5)
+    require(int(err.item()) == 0 and all(torch.equal(o, w) for o, w in zip(outs, want)),
+            f"{name}: the launcher's own calls disagree with the wrapper's")
+    return dev_ms, issue_ms
+
+
 def check_inst_traversal(data, config, rays, lanes, out, bounds):
     """K7 on primary and bounce rays, K8 on shadow rays: exact against the
-    plain leaf scans on ``lanes`` (timed there), timed at full N."""
+    plain leaf scans on ``lanes`` (timed there), timed at full N: events
+    around 5 wrapper calls (ms) and a launch's device time apart from its
+    issue time (inst_device_ms). The bound counts the ray transform and one row test a
+    hit as the unavoidable work, whatever the kernel tests."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
 
     tr = data.tris
-    tabs = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes, tr.leaf_start, tr.leaf_inst,
-            tr.inst_w2o)
+    tabs = inst_tables(tr)
     plain_tabs = (tr.packed, tr.leaf_start, tr.leaf_inst, tr.inst_w2o)
     kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
     n = config.width * config.height
-    leaf_flops = 18 + config.bvh_tcl * MT_FLOPS_CLOSEST  # the ray transform + one leaf
     k7, k8 = out["bvh_closest_inst"], out["bvh_anyhit_inst"]
     for label in ("primary", "bounce"):
         full = planes_of(rays[label])
@@ -1373,17 +1421,21 @@ def check_inst_traversal(data, config, rays, lanes, out, bounds):
         err = float((t_ks[hit] - t_p[hit]).abs().max()) if bool(hit.any()) else 0.0
         bit_t = bool(torch.equal(t_ks, t_p))
         ms = cuda_time_ms(lambda: bt.bvh_closest_inst(*full, *tabs, **kw), reps=5)
+        dev_ms, issue_ms = inst_device_ms("bvh_closest_inst", full, tabs, config, tr,
+                                          (t_k, i_k, l_k))
         live = int((full[7] > full[6]).sum())
         bound, by = bounds["bvh_closest_inst"].add(
             nbytes(*full, *tabs, t_k, i_k, l_k),
-            live * 8 * SLAB_FLOPS + int((i_k >= 0).sum()) * leaf_flops)
+            live * 8 * SLAB_FLOPS + int((i_k >= 0).sum()) * (18 + MT_FLOPS_CLOSEST))
         log(f"  K7 {label}: {int(hit.sum())}/{lanes.numel()} hits, (row, leaf) mismatches "
-            f"{mism}, t bit-equal {bit_t}; kernel {ms:.3f} ms at N={n}, plain "
-            f"{plain_ms:.1f} ms at N={lanes.numel()}, bound {bound:.4f} ms ({by})")
+            f"{mism}, t bit-equal {bit_t}; kernel {ms:.3f} ms at N={n} (device "
+            f"{dev_ms:.3f}, issue {issue_ms:.4f}), plain {plain_ms:.1f} ms at "
+            f"N={lanes.numel()}, bound {bound:.4f} ms ({by})")
         require(mism == 0 and bit_t, f"K7 {label}: kernel disagrees with the plain leaf scan")
         k7.setdefault("calls", {})[f"instanced {label}"] = {
-            "ms": ms, "plain_ms": plain_ms, "plain_n": lanes.numel(), "bound_ms": bound,
-            "bound_by": by, "hits": int(hit.sum()), "mismatches": mism}
+            "ms": ms, "device_ms": dev_ms, "issue_ms": issue_ms, "plain_ms": plain_ms,
+            "plain_n": lanes.numel(), "bound_ms": bound, "bound_by": by,
+            "hits": int(hit.sum()), "mismatches": mism}
         k7["ms"] += ms
         k7["plain_ms"] += plain_ms
         k7["max_abs_err"] = max(k7["max_abs_err"], err)
@@ -1395,22 +1447,201 @@ def check_inst_traversal(data, config, rays, lanes, out, bounds):
         *planes_of(rays["shadow"], lanes), *plain_tabs, tcl=config.bvh_tcl))
     mism = int((occ_k[lanes] != occ_p).sum())
     ms = cuda_time_ms(lambda: bt.bvh_anyhit_inst(*full, *tabs, **kw), reps=5)
+    dev_ms, issue_ms = inst_device_ms("bvh_anyhit_inst", full, tabs, config, tr, (occ_k,))
     live = int((full[7] > full[6]).sum())
     bound, by = bounds["bvh_anyhit_inst"].add(
         nbytes(*full, *tabs, occ_k),
         live * 8 * SLAB_FLOPS + int(occ_k.sum()) * (18 + MT_FLOPS_ANY))
     log(f"  K8 shadow: {int(occ_p.sum())}/{lanes.numel()} occluded, mismatches {mism}; "
-        f"kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms at N={lanes.numel()}, "
-        f"bound {bound:.4f} ms ({by})")
+        f"kernel {ms:.3f} ms at N={n} (device {dev_ms:.3f}, issue {issue_ms:.4f}), plain "
+        f"{plain_ms:.1f} ms at N={lanes.numel()}, bound {bound:.4f} ms ({by})")
     require(mism == 0, "K8 shadow: kernel disagrees with the plain leaf scan")
     k8.setdefault("calls", {})["instanced shadow"] = {
-        "ms": ms, "plain_ms": plain_ms, "plain_n": lanes.numel(), "bound_ms": bound,
-        "bound_by": by, "occluded": int(occ_p.sum()), "mismatches": mism}
+        "ms": ms, "device_ms": dev_ms, "issue_ms": issue_ms, "plain_ms": plain_ms,
+        "plain_n": lanes.numel(), "bound_ms": bound, "bound_by": by,
+        "occluded": int(occ_p.sum()), "mismatches": mism}
     k8["ms"] += ms
     k8["plain_ms"] += plain_ms
     k8["mismatches"] += mism
     k8["max_abs_err"] = max(k8["max_abs_err"], float(mism > 0))
     k8.update(bounds["bvh_anyhit_inst"].fields())
+
+
+def inst_visit_counts(data, config, rays) -> dict:
+    """World leaves, sub-leaf groups and rows that K7's walk tests per live
+    ray on each ray set at full N (shadow rays through K7 too: an upper
+    bound on K8's walk, which stops at its first hit), from the counting
+    instantiation of K7 (launch_bvh_closest_inst_count, for measurement
+    only), whose (t, row, leaf) must equal K7's."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    tabs = inst_tables(tr)
+    kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+    fn = kernels.launcher("bvh_closest_inst_count")
+    out = {}
+    for label in ("primary", "bounce", "shadow"):
+        full = planes_of(rays[label])
+        n = full[0].shape[0] // bt.COUNT_TILE * bt.COUNT_TILE
+        full = [p[:n].contiguous() for p in full]
+        dev = full[0].device
+        t = torch.empty(n, device=dev)
+        i = torch.empty(n, dtype=torch.int32, device=dev)
+        leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        counts = torch.zeros((n // bt.COUNT_TILE, 4), dtype=torch.int32, device=dev)
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        rc = fn(*(p.data_ptr() for p in full), *(x.data_ptr() for x in tabs),
+                n, tr.packed.shape[0], config.bvh_tcl, tr.bvh_axis.shape[0],
+                tr.leaf_start.shape[0], t.data_ptr(), i.data_ptr(), leaf.data_ptr(),
+                counts.data_ptr(), err.data_ptr(), kernels.stream_ptr(dev))
+        kernels.check(rc, "bvh_closest_inst_count")
+        require(int(err.item()) == 0, "bvh_closest_inst_count: traversal fault flag")
+        t7, i7, l7 = bt.bvh_closest_inst(*full, *tabs, **kw)
+        require(bool(torch.equal(t, t7) and torch.equal(i, i7) and torch.equal(leaf, l7)),
+                f"the counting K7 disagrees with K7 on {label} rays")
+        live = max(int((full[7] > full[6]).sum()), 1)
+        tot = counts.to(torch.int64).sum(dim=0).tolist()
+        per_tile = counts[:, 1].to(torch.float64)
+        rec = {"live": live, "hits": int((i >= 0).sum()),
+               "pops_per_ray": tot[0] / live, "leaves_per_ray": tot[1] / live,
+               "groups_per_ray": tot[2] / live, "rows_per_ray": tot[3] / live,
+               "leaves_per_tile_max_over_mean": float(per_tile.max() / per_tile.mean())}
+        log(f"  visits {label}: " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
+        out[label] = rec
+    return out
+
+
+def extra_inst_rays(data, config, cam) -> dict:
+    """Two more 1080p ray sets for K7/K8 as planes: the frame's unjittered
+    primary rays (generate_rays with zero jitter, as phase 16 (b2) makes
+    them on mesh_env), and vertical rays (direction exactly (0, -1, 0))
+    from a 1920 x 1080 grid of origins over the world tree's box, above
+    it: under an instance's rotation about y their object-space x and z
+    directions are 0 or nearly 0."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.render.camera import generate_rays
+    from pupiloptixlab_tpu_torch.render.sampling import MAX_DISTANCE, RAY_OFFSET
+
+    n = config.width * config.height
+    zero = torch.zeros(n, device=DEV)
+    tmin = torch.full((n,), RAY_OFFSET, device=DEV)
+    tmax = torch.full((n,), MAX_DISTANCE, device=DEV)
+    ro, rd = generate_rays(cam, config.width, config.height, zero, zero)
+    out = {"unjittered": planes_of((ro, rd, tmin, tmax))}
+    root = data.tris.bvh_boxes[0:8]
+    root = root[root[:, 0] < 1e30]
+    lo, hi = root[:, 0:3].amin(0), root[:, 3:6].amax(0)
+    xs = torch.linspace(float(lo[0]), float(hi[0]), config.width, device=DEV)
+    zs = torch.linspace(float(lo[2]), float(hi[2]), config.height, device=DEV)
+    gz, gx = torch.meshgrid(zs, xs, indexing="ij")
+    ox, oz = gx.reshape(-1).contiguous(), gz.reshape(-1).contiguous()
+    oy = torch.full((n,), float(hi[1]) + 1.0, device=DEV)
+    out["vertical"] = [ox, oy, oz, torch.zeros(n, device=DEV), torch.full((n,), -1.0, device=DEV),
+                       torch.zeros(n, device=DEV), tmin, tmax]
+    return out
+
+
+def subleaf_tie_case():
+    """A one-leaf instanced table (64 rows, an identity instance) in which
+    row 0 and row 56 hold the same triangle T = (0,0,0), (1,0,0), (0,1,0);
+    group 7 (rows 56-63) also holds a triangle at z = -1 off the rays'
+    path, so its box starts nearer than group 0's and near-first order
+    tests row 56 before row 0. Rays from z = -5 along +z through T hit
+    both rows at one t: K7 must return row 0, as the plain scan does.
+    Returns (planes, table arguments, tcl)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tcl = 64
+    packed = torch.zeros((tcl, 12))
+    tri = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    packed[0, 0:9] = tri
+    packed[56, 0:9] = tri
+    packed[57, 0:9] = torch.tensor([5.0, 0.0, -1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    for g in range(1, 7):  # one far triangle in each middle group
+        packed[8 * g, 0:9] = torch.tensor([10.0, 0.0, 3.0 + g, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    boxes = torch.zeros((8, 8))
+    boxes[:, 0:6] = 1e30  # empty slots: the never-box
+    boxes[0, 0:6] = torch.tensor([-1.0, -1.0, -2.0, 12.0, 2.0, 10.0])
+    child = torch.tensor([-1, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32)
+    w2o = torch.tensor([[1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0]])
+    packed, boxes, child, w2o = (x.to(DEV) for x in (packed, boxes, child, w2o))
+    tabs = (packed, child, torch.zeros(1, dtype=torch.int32, device=DEV), boxes,
+            torch.zeros(1, dtype=torch.int32, device=DEV),
+            torch.zeros(1, dtype=torch.int32, device=DEV), w2o,
+            bt.make_subleaf_boxes(packed, tcl))
+    g = torch.linspace(0.05, 0.45, 32, device=DEV)
+    gx, gy = [a.reshape(-1).contiguous() for a in torch.meshgrid(g, g, indexing="ij")]
+    n = gx.shape[0]
+    planes = [gx, gy, torch.full((n,), -5.0, device=DEV), torch.zeros(n, device=DEV),
+              torch.zeros(n, device=DEV), torch.ones(n, device=DEV),
+              torch.full((n,), 1e-3, device=DEV), torch.full((n,), 1e16, device=DEV)]
+    return planes, tabs, tcl
+
+
+def check_subleaf_gates(data, config, cam, rays, lanes) -> dict:
+    """K7/K8 with the sub-leaf table against the same kernels with an
+    all-pass table, whose every group box holds its whole leaf (+-1e30):
+    that run tests every row of every leaf it reaches, the full leaf scan,
+    by data and not by a flag. On all 2,073,600 lanes of the primary,
+    bounce, shadow, unjittered and vertical rays: K7's t bit-equal, rows
+    and leaves equal; K8's flags equal. The unjittered and vertical rays
+    are also held against the plain leaf scans on ``lanes``. Then the
+    cross-group tie (subleaf_tie_case): K7 must return the lower row."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    tabs = inst_tables(tr)
+    sub = tabs[-1]
+    allpass = torch.tensor([-1e30, -1e30, -1e30, 1e30, 1e30, 1e30, 0.0, 0.0],
+                           device=DEV).expand_as(sub).contiguous()
+    kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+    plain_tabs = (tr.packed, tr.leaf_start, tr.leaf_inst, tr.inst_w2o)
+    sets = {k: planes_of(rays[k]) for k in ("primary", "bounce", "shadow")}
+    sets.update(extra_inst_rays(data, config, cam))
+    out = {}
+    for label, full in sets.items():
+        t7, i7, l7 = bt.bvh_closest_inst(*full, *tabs, **kw)
+        ta, ia, la = bt.bvh_closest_inst(*full, *tabs[:-1], allpass, **kw)
+        o8 = bt.bvh_anyhit_inst(*full, *tabs, **kw)
+        oa = bt.bvh_anyhit_inst(*full, *tabs[:-1], allpass, **kw)
+        rec = {"lanes": full[0].shape[0], "hits": int((i7 >= 0).sum()),
+               "occluded": int(o8.sum()), "k7_t_off": int((t7 != ta).sum()),
+               "k7_rows_off": int(((i7 != ia) | (l7 != la)).sum()),
+               "k8_flags_off": int((o8 != oa).sum())}
+        if label in ("unjittered", "vertical"):
+            ps = [p[lanes] for p in full]
+            tp, ip, lp = bt.plain_closest_inst(*ps, *plain_tabs, tcl=config.bvh_tcl)
+            op = bt.plain_anyhit_inst(*ps, *plain_tabs, tcl=config.bvh_tcl)
+            rec.update(plain_lanes=lanes.numel(), plain_hits=int((ip >= 0).sum()),
+                       plain_t_off=int((t7[lanes] != tp).sum()),
+                       plain_rows_off=int(((i7[lanes] != ip) | (l7[lanes] != lp)).sum()),
+                       plain_flags_off=int((o8[lanes] != op).sum()))
+        log(f"  sub-leaf {label}: {rec}")
+        require(rec["hits"] > 0 and all(v == 0 for k, v in rec.items() if k.endswith("_off")),
+                f"K7/K8 with the sub-leaf table disagree on {label} rays")
+        out[label] = rec
+    planes, ttabs, tcl = subleaf_tie_case()
+    t7, i7, l7 = bt.bvh_closest_inst(*planes, *ttabs, tcl=tcl, depth=1)
+    tp, ip, lp = bt.plain_closest_inst(*planes, *ttabs[0:1], *ttabs[4:7], tcl=tcl)
+    o8 = bt.bvh_anyhit_inst(*planes, *ttabs, tcl=tcl, depth=1)
+    rec = {"lanes": planes[0].shape[0], "rows": sorted(set(i7.tolist())),
+           "plain_rows": sorted(set(ip.tolist())), "t_equal_plain": bool(torch.equal(t7, tp)),
+           "occluded": int(o8.sum())}
+    log(f"  sub-leaf tie across groups 0 and 7: {rec}")
+    require(rec["rows"] == [0] and rec["plain_rows"] == [0] and rec["t_equal_plain"]
+            and bool((l7 == 0).all()) and rec["occluded"] == rec["lanes"],
+            "K7 must keep the lower row of a tie across sub-leaf groups")
+    out["tie"] = rec
+    return out
 
 
 INST_PATH = ("bvh_closest_inst", "bvh_anyhit_inst", "gather_planes", "count_less")
@@ -1485,6 +1716,7 @@ def phase_instanced(tmp, bounds, results):
     lanes = pick_lanes(n, tr.packed.device)
     ks = results["kernels"]
     check_inst_traversal(data, config, rays, lanes, ks, bounds)
+    rec["subleaf"] = check_subleaf_gates(data, config, cam, rays, lanes[:INST_MODE_LANES])
     check_gathers("instanced", rays["gathers"], ks["gather_planes"], bounds["gather_planes"])
     check_counts("instanced", {**rays["counts"], **env_cases(data, n, seed=3)},
                  ks["count_less"], bounds["count_less"])
@@ -1541,6 +1773,32 @@ def _leaf_boxes(tris) -> dict:
     start, inst = tris.leaf_start.cpu().numpy(), tris.leaf_inst.cpu().numpy()
     return {(int(start[-c - 1]), int(inst[-c - 1])): boxes[slot, 0:6]
             for slot, c in enumerate(child) if c < 0}
+
+
+REFIT_K7_LANES = 8192  # K7 against the plain scan after phase 12's instanced edit
+
+
+def check_k7_after_edit(data, config, cam) -> dict:
+    """K7 on ``REFIT_K7_LANES`` seeded lanes of the edited instanced scene's
+    primary rays (the refit's tables: moved and hidden instances, the
+    sub-leaf boxes kept) against the plain leaf scan."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    planes = primary_planes(config, cam)
+    lanes = pick_lanes(planes[0].shape[0], DEV)[:REFIT_K7_LANES]
+    sub = [p[lanes].contiguous() for p in planes]
+    t, i, leaf = bt.bvh_closest_inst(*sub, *inst_tables(tr), tcl=config.bvh_tcl,
+                                     depth=tr.bvh_depth)
+    tp, ip, lp = bt.plain_closest_inst(*sub, tr.packed, tr.leaf_start, tr.leaf_inst,
+                                       tr.inst_w2o, tcl=config.bvh_tcl)
+    rec = {"lanes": lanes.numel(), "hits": int((ip >= 0).sum()),
+           "t_off": int((t != tp).sum()), "rows_off": int(((i != ip) | (leaf != lp)).sum())}
+    require(rec["hits"] > 0 and rec["t_off"] == 0 and rec["rows_off"] == 0,
+            f"K7 disagrees with the plain leaf scan after the edit: {rec}")
+    return rec
 
 
 def phase_refit(inst_xml, results):
@@ -1607,8 +1865,13 @@ def phase_refit(inst_xml, results):
             lb = np.stack([b[k] for k in live])
             ulp = float(np.max(np.abs(la - lb) / np.spacing(np.abs(lb))))
             dead = sum(1 for k in a if k[1] == hidden)  # mesh instances = scene instances here
-            ok = same and a.keys() == b.keys() and ulp <= 1.0 and len(live) == len(a) - dead
-            err = {"tables_equal": same, "live_leaves": len(live), "leaf_box_max_ulp": ulp}
+            # the sub-leaf boxes are object-space: the refit keeps them as they are
+            sub_kept = (data1.tris.subleaf_boxes is data0.tris.subleaf_boxes
+                        and torch.equal(data1.tris.subleaf_boxes, fresh.tris.subleaf_boxes))
+            ok = (same and sub_kept and a.keys() == b.keys() and ulp <= 1.0
+                  and len(live) == len(a) - dead)
+            err = {"tables_equal": same, "subleaf_kept": sub_kept, "live_leaves": len(live),
+                   "leaf_box_max_ulp": ulp}
         else:
             require(kind == "RefitData", f"{label}: expected baked refit records")
 
@@ -1630,6 +1893,8 @@ def phase_refit(inst_xml, results):
         accum = torch.zeros((m, 3), dtype=torch.float32, device=DEV)
         _, bufs = render_frame(data1, cam, 0, 0, accum, config1)
         finite = bool(torch.isfinite(bufs["frame"]).all())
+        if config0.instanced:
+            err["k7_after_edit"] = check_k7_after_edit(data1, config1, cam)
         log(f"  refit {label} ({kind}): first flatten {load_s:.3f} s, refit {refit_s * 1e3:.2f} "
             f"ms, fresh flatten of the edited scene {fresh_s:.3f} s, flatten calls "
             f"{len(calls)}, tree nodes kept {config1.bvh_nodes} (fresh {fconfig.bvh_nodes}), "
@@ -2377,7 +2642,8 @@ def build(kernels) -> None:
     log(f"[build] {kernels.BUILD_SECONDS:.1f} s")
     for stem, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "entry function" in line):
                 log(f"  {stem}: {line.strip()}")
 
 
@@ -2642,6 +2908,56 @@ def main_tables(label: str) -> int:
     return 0
 
 
+INST_MODE_LANES = 16384  # --inst: lanes held against the plain leaf scan (~3 s a call)
+
+
+def main_inst(label: str) -> int:
+    """``--inst``: only the instanced scene's K7/K8 checks (phase 11's calls
+    on the 64-instance scene at 1080p: K7 on primary and bounce rays, K8 on
+    shadow rays, each against the plain leaf scan on a seeded subset of
+    ``INST_MODE_LANES`` lanes and timed at full N, events and device apart
+    from issue), the visits per ray where the package has the counting K7,
+    and the sub-leaf gates where it has the sub-leaf level
+    (``check_subleaf_gates``). With ``--package DIR`` the package is
+    imported from DIR, so that a parent tree's K7/K8 run under this
+    script's timing in the same call. Prints the card's line, then the
+    results as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.scene.instanced_grid import write_instanced_scene
+
+    log(f"[inst] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "package": str(Path(kernels.__file__).parent), "kernels": {}}
+    bounds = {}
+    for name in ("bvh_closest_inst", "bvh_anyhit_inst"):
+        results["kernels"][name] = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+                                    "mismatches": 0, "library_ms": None}
+        bounds[name] = Bound()
+    with torch.inference_mode(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        xml = write_instanced_scene(Path(tmp) / "instanced", SKY, INST_N, INST_GRID, *FILM,
+                                    max_depth=4)
+        data, config, cam = load_tables(xml, *FILM, DEV)
+        rays = main_path_rays(data, config, cam)
+        n = config.width * config.height
+        lanes = pick_lanes(n, DEV)[:INST_MODE_LANES]
+        check_inst_traversal(data, config, rays, lanes, results["kernels"], bounds)
+        if "bvh_closest_inst_count" in kernels.KERNELS:
+            results["visits"] = inst_visit_counts(data, config, rays)
+        if getattr(data.tris, "subleaf_boxes", None) is not None:
+            results["subleaf"] = check_subleaf_gates(data, config, cam, rays, lanes)
+    results["label"] = label
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def kernels_line(results, runs) -> list:
     """Each kernel's launches over the runs of the main paths it is on (each
     run had the counts set to 0 just before and read just after): the paths
@@ -2665,20 +2981,23 @@ def kernels_line(results, runs) -> list:
 
 def cli() -> int:
     """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
-    K3/K4 alone (main_tables), with the package imported from DIR."""
+    K3/K4 alone (main_tables); ``--inst LABEL [--package DIR]``: K7/K8 alone
+    (main_inst); either with the package imported from DIR."""
     args = sys.argv[1:]
     if not args:
         return main()
-    if args[0] != "--tables" or len(args) not in (2, 4) or (
+    modes = {"--tables": main_tables, "--inst": main_inst}
+    if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
-        print("usage: chip_smoke.py [--tables LABEL [--package DIR]]", file=sys.stderr)
+        print("usage: chip_smoke.py [--tables LABEL | --inst LABEL] [--package DIR]",
+              file=sys.stderr)
         return 2
     root = Path(args[3]).resolve() if len(args) == 4 else REPO
     if not (root / "pupiloptixlab_tpu_torch").is_dir():
         print(f"chip_smoke.py: no pupiloptixlab_tpu_torch package in {root}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
-    return main_tables(args[1])
+    return modes[args[0]](args[1])
 
 
 if __name__ == "__main__":

@@ -20,7 +20,10 @@ K7/K8 (``plain_closest_inst``, ``plain_anyhit_inst``) scan every world
 leaf in table order with the ray mapped into the leaf's instance space,
 as the reference's ``_sweep_tris_xla_instanced`` does: ties at equal t go
 to the lowest world leaf, then the lowest row. The kernels return exactly
-those results, bit for bit.
+those results, bit for bit. K7/K8 also take the port's sub-leaf table
+(``make_subleaf_boxes``: 8 object-space boxes per unique leaf, each over
+tcl / 8 consecutive rows) and test a world leaf's rows only in the groups
+whose boxes the object ray enters; the plain scans do not read it.
 
 K11 is K1 with traversal counters: K1's (t, row), bit for bit, and per
 tile of 1024 consecutive rays the sums of two counts over its rays (inner
@@ -96,8 +99,9 @@ def _check_args(name, planes, tri, child, axis, boxes, tcl, depth):
 def _raise_on_flag(name, err):
     code = int(err.item())
     if code:
-        raise RuntimeError(f"{name}: traversal fault flag {code} "
-                           "(1 = visit cap exceeded, 2 = stack overflow)")
+        raise RuntimeError(f"{name}: traversal fault flag {code} (1 = visit cap "
+                           "exceeded, 2 = stack overflow, 4 = a leaf start off the "
+                           "leaf grid)")
 
 
 def bvh_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
@@ -374,6 +378,65 @@ def plain_anyhit_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, leaf_start,
     return (idx >= 0).to(torch.int32)
 
 
+SUBLEAF_GROUPS = 8        # object-space group boxes per unique leaf (K7/K8)
+SUBLEAF_PAD = 2.0 ** -13  # a group box's outward margin over its largest |coordinate|
+_NEVER = 1e30             # the never-box of accel/bvh.py: a point at 1e30
+
+
+def make_subleaf_boxes(packed, tcl: int):
+    """K7/K8's sub-leaf level: (T / tcl * 8, 8) float32 boxes [lox loy loz
+    hix hiy hiz 0 0] (the layout of ``bvh_boxes``) in OBJECT space, on
+    ``packed``'s device. Unique leaf u (rows [u * tcl, (u + 1) * tcl))
+    splits into 8 groups of tcl / 8 consecutive rows (Morton-ordered by the
+    flatten, so a group is compact); box u * 8 + g bounds the vertices p0,
+    p0 + e1, p0 + e2 of group g's rows, in float64, widened on every axis
+    by ``SUBLEAF_PAD`` times the box's largest |coordinate| and rounded
+    outward to float32. A row whose e1 or e2 is zero (the flatten's
+    padding rows are all zero) can never pass Moller-Trumbore (its det is
+    exactly 0) and is left out; a group of such rows alone gets the
+    never-box.
+
+    The margin keeps the slab test from dropping a group that holds a row
+    Moller-Trumbore accepts: a slab entry or exit t of a box coordinate c
+    rounds by ~2e-7 relative, i.e. ~2e-7 |c - o| in space, which the
+    margin (1.2e-4 |c|) covers for object-space origins up to ~600 box
+    radii away, and it covers a hit that Moller-Trumbore's rounding puts
+    just outside its triangle. ``tests/test_torch_inst_subleaf.py`` holds
+    it on rays along box faces and rays with zero direction components."""
+    t_rows = packed.shape[0]
+    if tcl % SUBLEAF_GROUPS or t_rows % tcl:
+        raise ValueError(f"make_subleaf_boxes: {t_rows} rows in leaves of {tcl} do not "
+                         f"split into {SUBLEAF_GROUPS} groups a leaf")
+    gr = tcl // SUBLEAF_GROUPS
+    p = packed[:, 0:9].to(torch.float64)
+    p0, e1, e2 = p[:, 0:3], p[:, 3:6], p[:, 6:9]
+    verts = torch.stack([p0, p0 + e1, p0 + e2], 1)  # (T, 3 vertices, 3)
+    live = (e1 != 0).any(1) & (e2 != 0).any(1)
+    lo = torch.where(live[:, None], verts.amin(1), torch.inf).reshape(-1, gr, 3).amin(1)
+    hi = torch.where(live[:, None], verts.amax(1), -torch.inf).reshape(-1, gr, 3).amax(1)
+    some = live.reshape(-1, gr).any(1)[:, None]
+    pad = SUBLEAF_PAD * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
+    lo, hi = lo - pad, hi + pad
+    lo32, hi32 = lo.to(torch.float32), hi.to(torch.float32)
+    lo32 = torch.where(lo32.to(torch.float64) > lo, torch.nextafter(lo32, lo32 - 1.0), lo32)
+    hi32 = torch.where(hi32.to(torch.float64) < hi, torch.nextafter(hi32, hi32 + 1.0), hi32)
+    boxes = torch.zeros((lo.shape[0], 8), dtype=torch.float32, device=packed.device)
+    boxes[:, 0:3] = torch.where(some, lo32, _NEVER)
+    boxes[:, 3:6] = torch.where(some, hi32, _NEVER)
+    return boxes
+
+
+def _check_subleaf(name, tri, subleaf_boxes, tcl):
+    want = (tri.shape[0] // tcl * SUBLEAF_GROUPS, 8)
+    if (tcl % SUBLEAF_GROUPS or tri.shape[0] % tcl or subleaf_boxes.device != tri.device
+            or subleaf_boxes.dtype != torch.float32 or tuple(subleaf_boxes.shape) != want
+            or not subleaf_boxes.is_contiguous()):
+        raise ValueError(f"{name}: subleaf_boxes must be contiguous float32 {want} on "
+                         f"{tri.device} (make_subleaf_boxes of {tri.shape[0]} rows in leaves "
+                         f"of {tcl}), got {subleaf_boxes.dtype} "
+                         f"{tuple(subleaf_boxes.shape)} on {subleaf_boxes.device}")
+
+
 def _check_inst(name, tri, leaf_start, leaf_inst, inst_w2o):
     dev = tri.device
     for label, t, dt, width in (("leaf_start", leaf_start, torch.int32, None),
@@ -390,16 +453,20 @@ def _check_inst(name, tri, leaf_start, leaf_inst, inst_w2o):
 
 
 def bvh_closest_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, bvh_child, bvh_axis,
-                     bvh_boxes, leaf_start, leaf_inst, inst_w2o, tcl: int = 32,
-                     depth: int = 1):
+                     bvh_boxes, leaf_start, leaf_inst, inst_w2o, subleaf_boxes,
+                     tcl: int = 32, depth: int = 1):
     """Instanced closest-hit traversal; returns (t, unique row, world leaf)
-    with (1e16, -1, -1) on a miss. ``leaf_inst[leaf]`` is the instance."""
+    with (1e16, -1, -1) on a miss. ``leaf_inst[leaf]`` is the instance;
+    ``subleaf_boxes`` is ``make_subleaf_boxes(tri, tcl)`` (the kernel tests
+    only the rows of the groups whose boxes the object ray enters; the plain
+    scan, which tests every row, does not read it)."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
     if tri.device.type == "cpu":
         return plain_closest_inst(*planes, tri, leaf_start, leaf_inst, inst_w2o, tcl=tcl)
     n, n_nodes = _check_args("bvh_closest_inst", planes, tri, bvh_child, bvh_axis,
                              bvh_boxes, tcl, depth)
     n_leaves = _check_inst("bvh_closest_inst", tri, leaf_start, leaf_inst, inst_w2o)
+    _check_subleaf("bvh_closest_inst", tri, subleaf_boxes, tcl)
     t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
     i_out = torch.empty(n, dtype=torch.int32, device=tri.device)
     l_out = torch.empty(n, dtype=torch.int32, device=tri.device)
@@ -408,32 +475,35 @@ def bvh_closest_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, bvh_child, b
     kernels.LAUNCHES["bvh_closest_inst"] += 1
     rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), bvh_child.data_ptr(),
             bvh_axis.data_ptr(), bvh_boxes.data_ptr(), leaf_start.data_ptr(),
-            leaf_inst.data_ptr(), inst_w2o.data_ptr(), n, tri.shape[0], tcl, n_nodes,
-            n_leaves, t_out.data_ptr(), i_out.data_ptr(), l_out.data_ptr(),
-            err.data_ptr(), kernels.stream_ptr(tri.device))
+            leaf_inst.data_ptr(), inst_w2o.data_ptr(), subleaf_boxes.data_ptr(), n,
+            tri.shape[0], tcl, n_nodes, n_leaves, t_out.data_ptr(), i_out.data_ptr(),
+            l_out.data_ptr(), err.data_ptr(), kernels.stream_ptr(tri.device))
     kernels.check(rc, "bvh_closest_inst")
     _raise_on_flag("bvh_closest_inst", err)
     return t_out, i_out, l_out
 
 
 def bvh_anyhit_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, bvh_child, bvh_axis,
-                    bvh_boxes, leaf_start, leaf_inst, inst_w2o, tcl: int = 32,
-                    depth: int = 1):
-    """Instanced occlusion-only traversal; returns (N,) int32 (1 = occluded)."""
+                    bvh_boxes, leaf_start, leaf_inst, inst_w2o, subleaf_boxes,
+                    tcl: int = 32, depth: int = 1):
+    """Instanced occlusion-only traversal; returns (N,) int32 (1 = occluded).
+    ``subleaf_boxes`` as for ``bvh_closest_inst``."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
     if tri.device.type == "cpu":
         return plain_anyhit_inst(*planes, tri, leaf_start, leaf_inst, inst_w2o, tcl=tcl)
     n, n_nodes = _check_args("bvh_anyhit_inst", planes, tri, bvh_child, bvh_axis,
                              bvh_boxes, tcl, depth)
     n_leaves = _check_inst("bvh_anyhit_inst", tri, leaf_start, leaf_inst, inst_w2o)
+    _check_subleaf("bvh_anyhit_inst", tri, subleaf_boxes, tcl)
     occ = torch.empty(n, dtype=torch.int32, device=tri.device)
     err = torch.zeros(1, dtype=torch.int32, device=tri.device)
     fn = kernels.launcher("bvh_anyhit_inst")
     kernels.LAUNCHES["bvh_anyhit_inst"] += 1
     rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), bvh_child.data_ptr(),
             bvh_axis.data_ptr(), bvh_boxes.data_ptr(), leaf_start.data_ptr(),
-            leaf_inst.data_ptr(), inst_w2o.data_ptr(), n, tri.shape[0], tcl, n_nodes,
-            n_leaves, occ.data_ptr(), err.data_ptr(), kernels.stream_ptr(tri.device))
+            leaf_inst.data_ptr(), inst_w2o.data_ptr(), subleaf_boxes.data_ptr(), n,
+            tri.shape[0], tcl, n_nodes, n_leaves, occ.data_ptr(), err.data_ptr(),
+            kernels.stream_ptr(tri.device))
     kernels.check(rc, "bvh_anyhit_inst")
     _raise_on_flag("bvh_anyhit_inst", err)
     return occ

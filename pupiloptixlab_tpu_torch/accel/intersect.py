@@ -99,7 +99,7 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
     if config.instanced:
         t, idx, leaf = bvh_closest_inst(
             *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
-            tris.leaf_start, tris.leaf_inst, tris.inst_w2o,
+            tris.leaf_start, tris.leaf_inst, tris.inst_w2o, tris.subleaf_boxes,
             tcl=config.bvh_tcl, depth=tris.bvh_depth,
         )
         inst = tris.leaf_inst[torch.clamp(leaf, min=0).long()]
@@ -286,7 +286,7 @@ def intersect_any(
         if config.instanced:
             occ = bvh_anyhit_inst(
                 *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
-                tris.leaf_start, tris.leaf_inst, tris.inst_w2o,
+                tris.leaf_start, tris.leaf_inst, tris.inst_w2o, tris.subleaf_boxes,
                 tcl=config.bvh_tcl, depth=tris.bvh_depth,
             )
         elif config.bvh_nodes > 0:

@@ -35,10 +35,33 @@
 // OBJECT-space rows. At a leaf the ray is mapped into the instance's object
 // space through its 3x4 world-to-object matrix (w0*x + w1*y + w2*z + w3,
 // summed left to right; directions are not renormalised, so t stays the
-// world parameter) and tested against the leaf's tcl rows. Boxes are world
-// boxes tested with the world ray.
+// world parameter) and tested against the leaf's tcl rows. Tree boxes are
+// world boxes tested with the world ray.
 //   K7: closest (t, unique row, world leaf); a miss writes (1e16, -1, -1).
 //   K8: the any-hit flag.
+//
+// K7/K8's sub-leaf level. A world leaf holds tcl = 64 rows on the
+// 64-instance scene (the reference doubles tcl to keep under 12,000 world
+// leaves); testing every row of each leaf a ray visits comes to ~260 rows
+// a ray for at most one hit, and the floor's leaf holds 62 zero rows. The
+// port's own table subleaf (accel/bvh_traverse.py
+// make_subleaf_boxes; not the reference's) holds 8 object-space boxes per
+// unique leaf, one for each group of tcl / 8 consecutive (Morton-ordered)
+// rows, widened by a small margin so that rounding in the slab test never
+// drops a group holding a row that Moller-Trumbore accepts; a group of
+// padding rows alone holds the never-box. At a world leaf the ray is mapped
+// into object space (K7: once for a run of consecutive leaves of one
+// instance), with the inverse and zero-component flag of its object
+// direction (the slab test's inputs), the 8 boxes are slab-tested,
+// and only the rows of the groups it enters are tested: K7 takes them
+// nearest entry first (the lower group on equal entry) against tfar =
+// min(best t, tmax) and stops once the nearest group left starts strictly
+// beyond the best t; K8 takes them in table order against tmax and stops
+// at the first hit. The reference's tables, the world tree and the
+// results are unchanged: a row skipped lies in a group the ray does not
+// enter before the best t, so it could not have won; an all-pass table
+// (every box +-1e30) makes the kernels the full leaf scan again, which
+// chip_smoke.py holds them against at full N.
 // Linear-form leaves (K10, baked tables with 32-row leaves): the tree and
 // the result are K1's, but each row is tested through the reference's
 // linear form (_mt_cols_table): det, u*det, v*det and t*det are 10-term dots
@@ -80,7 +103,8 @@
 // core holds ~16 MB; here every table is read from device memory through the
 // read-only path and the 50 MB L2 (big_env: 19.4 MB of rows, 0.4 MB of
 // boxes), so one kernel serves both sizes. The instanced unique table is
-// small (the 64-instance scene: 396 KB) and stays in L2. Sorting secondary
+// small (the 64-instance scene: 396 KB, its sub-leaf boxes 33 KB) and stays
+// in L2. Sorting secondary
 // rays for coherence is left to later, measured work.
 //
 // K10's design. The TPU runs the leaf test as one (10,128) x (10,N) product
@@ -99,7 +123,8 @@
 // 1/det under -fmad=false (the instance transform too), so t is
 // bit-identical to the plain PyTorch versions. Ties at equal t keep the
 // lowest row (K1), or the lowest world leaf and then the lowest row (K7: the
-// rule of the reference's plain leaf scan, intersect.py:447-505), which makes
+// rule of the reference's plain leaf scan, intersect.py:447-505, compared
+// outright, since K7 visits a leaf's groups in no fixed order), which makes
 // the result independent of visit order. Entries are pruned only when their
 // box starts strictly beyond the best t, so a tied leaf is still visited.
 // Hidden instances carry a zero matrix: their object-space direction is 0,
@@ -120,11 +145,16 @@ constexpr int kTile = 1024;  // rays per K11 count tile
 
 enum : int { kErrVisitCap = 1, kErrStack = 2 };
 
+constexpr int kGroups = 8;  // sub-leaf groups of a unique leaf (K7/K8)
+
+enum : int { kErrLeafGrid = 4 };  // a world leaf's start off the tcl grid
+
 // Leaf tables of an instanced scene (unused by the baked form).
 struct InstTables {
   const int* leaf_start;  // (L,) first unique row of each world leaf
   const int* leaf_inst;   // (L,) instance of each world leaf
   const float* w2o;       // (I, 12) world-to-object 3x4, row-major
+  const float4* subleaf;  // (T / tcl * 8, 8) object-space group boxes
   int n_leaves;
 };
 
@@ -175,7 +205,10 @@ __device__ __forceinline__ int world_leaf(int id, const InstTables& it) {
 }
 
 // The ray in the object space of one instance: w0*x + w1*y + w2*z + w3,
-// summed left to right (unfused under -fmad=false), as the plain leaf scan.
+// summed left to right (unfused under -fmad=false), as the plain leaf scan,
+// with the inverse direction and the zero-component flag of the OBJECT
+// direction (the group boxes are slab-tested in object space, where a
+// component may be exactly 0 although the world direction has none).
 __device__ __forceinline__ Ray to_object(const Ray& r, const float* __restrict__ w) {
   const float w0 = __ldg(w + 0), w1 = __ldg(w + 1), w2 = __ldg(w + 2), w3 = __ldg(w + 3);
   const float w4 = __ldg(w + 4), w5 = __ldg(w + 5), w6 = __ldg(w + 6), w7 = __ldg(w + 7);
@@ -188,7 +221,21 @@ __device__ __forceinline__ Ray to_object(const Ray& r, const float* __restrict__
   o.dx = w0 * r.dx + w1 * r.dy + w2 * r.dz;
   o.dy = w4 * r.dx + w5 * r.dy + w6 * r.dz;
   o.dz = w8 * r.dx + w9 * r.dy + w10 * r.dz;
+  o.ix = safe_inv(o.dx);
+  o.iy = safe_inv(o.dy);
+  o.iz = safe_inv(o.dz);
+  o.axis0 = o.dx == 0.0f || o.dy == 0.0f || o.dz == 0.0f;
   return o;
+}
+
+// The first row of world leaf li's unique leaf, clamped as the reference
+// clamps it; a start off the tcl grid (which the flatten never writes)
+// would read groups of two unique leaves, and sets the fault flag.
+__device__ __forceinline__ int inst_start(int li, const InstTables& it, int t_rows,
+                                          int tcl, int* err) {
+  const int s = min(max(__ldg(it.leaf_start + li), 0), t_rows - tcl);
+  if (s % tcl) atomicOr(err, kErrLeafGrid);
+  return s;
 }
 
 template <bool kInst, bool kLinear, bool kCount>
@@ -222,7 +269,8 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   float tbest = kMaxDistance;
   int ibest = -1;
   int lbest = -1;  // world leaf of the best hit (instanced form)
-  int pops = 0, leaves = 0;  // K11's counts of this ray
+  // K11's counts of this ray (and, instanced, the groups and rows tested)
+  int pops = 0, leaves = 0, groups = 0, rows = 0;
   if (r.tmx > r.tmn) {  // culled lanes (empty interval) return at once
     int stack[kStack];
     float stack_tn[kStack];
@@ -231,6 +279,8 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
     stack_tn[sp] = r.tmn;
     ++sp;
     int visits = n_nodes * 8 + 1;  // every slot of the tree at most once
+    int cur_inst = -1;  // K7: the instance whose object space ro is in
+    Ray ro = r;
     while (sp > 0) {
       if (--visits < 0) { atomicOr(err, kErrVisitCap); break; }
       --sp;
@@ -243,16 +293,49 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
         if constexpr (kCount) ++leaves;
         if constexpr (kInst) {
           const int li = world_leaf(id, it);
-          const int s = min(max(__ldg(it.leaf_start + li), 0), t_rows - tcl);
-          const Ray ro = to_object(r, it.w2o + (size_t)__ldg(it.leaf_inst + li) * 12);
-          for (int j = 0; j < tcl; ++j) {
-            float t;
-            // rows ascend within the leaf, so strict < keeps the lowest row
-            if (moller_trumbore(tri + (size_t)(s + j) * 3, ro, &t) &&
-                (t < tbest || (t == tbest && li < lbest))) {
-              tbest = t;
-              ibest = s + j;
-              lbest = li;
+          const int s = inst_start(li, it, t_rows, tcl, err);
+          // consecutive leaves of one instance share its object-space ray
+          const int inst = __ldg(it.leaf_inst + li);
+          if (inst != cur_inst) {
+            ro = to_object(r, it.w2o + (size_t)inst * 12);
+            cur_inst = inst;
+          }
+          const float4* gbox = it.subleaf + (size_t)(s / tcl) * (2 * kGroups);
+          const int gr = tcl / kGroups;
+          const float tfar = fminf(tbest, r.tmx);
+          float gtn[kGroups];
+          unsigned todo = 0;
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) {
+            if (slab(gbox + 2 * g, ro, tfar, &gtn[g])) todo |= 1u << g;
+          }
+          while (todo) {
+            // the nearest group left, the lower one on equal entry t
+            int gs = -1;
+            float ts = CUDART_INF_F;
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+              if (((todo >> g) & 1u) && gtn[g] < ts) {
+                ts = gtn[g];
+                gs = g;
+              }
+            }
+            // every group left starts beyond the best hit (a tie is tested)
+            if (gs < 0 || ts > tbest) break;
+            todo &= ~(1u << gs);
+            if constexpr (kCount) { ++groups; rows += gr; }
+            const int r0 = s + gs * gr;
+            for (int j = 0; j < gr; ++j) {
+              float t;
+              const int row = r0 + j;
+              // groups come in any order: ties compare (leaf, row) outright
+              if (moller_trumbore(tri + (size_t)row * 3, ro, &t) &&
+                  (t < tbest ||
+                   (t == tbest && (li < lbest || (li == lbest && row < ibest))))) {
+                tbest = t;
+                ibest = row;
+                lbest = li;
+              }
             }
           }
         } else if constexpr (kLinear) {
@@ -300,24 +383,24 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   i_out[i] = ibest;
   if constexpr (kInst) l_out[i] = lbest;
   if constexpr (kCount) {
-    __shared__ int part[2][kThreads / 32];
-    const int wp = __reduce_add_sync(0xffffffffu, pops);
-    const int wl = __reduce_add_sync(0xffffffffu, leaves);
-    if ((threadIdx.x & 31) == 0) {
-      part[0][threadIdx.x >> 5] = wp;
-      part[1][threadIdx.x >> 5] = wl;
+    constexpr int kNC = kInst ? 4 : 2;  // [pops, leaves] (+ [groups, rows])
+    const int mine[4] = {pops, leaves, groups, rows};
+    __shared__ int part[kNC][kThreads / 32];
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) {
+      const int w = __reduce_add_sync(0xffffffffu, mine[c]);
+      if ((threadIdx.x & 31) == 0) part[c][threadIdx.x >> 5] = w;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      int bp = 0, bl = 0;
+      int* slot = counts + (size_t)(i / kTile) * kNC;
 #pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) {
-        bp += part[0][w];
-        bl += part[1][w];
+      for (int c = 0; c < kNC; ++c) {
+        int b = 0;
+#pragma unroll
+        for (int w = 0; w < kThreads / 32; ++w) b += part[c][w];
+        atomicAdd(slot + c, b);
       }
-      int* slot = counts + (size_t)(i / kTile) * 2;
-      atomicAdd(slot, bp);
-      atomicAdd(slot + 1, bl);
     }
   }
 }
@@ -345,20 +428,32 @@ bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       if (--visits < 0) { atomicOr(err, kErrVisitCap); break; }
       const int id = stack[--sp];
       if (id < 0) {
-        int s;
-        Ray ro = r;
         if constexpr (kInst) {
+          // the group boxes in table order against tmax; the first hit ends it
           const int li = world_leaf(id, it);
-          s = min(max(__ldg(it.leaf_start + li), 0), t_rows - tcl);
-          ro = to_object(r, it.w2o + (size_t)__ldg(it.leaf_inst + li) * 12);
+          const int s = inst_start(li, it, t_rows, tcl, err);
+          const Ray ro = to_object(r, it.w2o + (size_t)__ldg(it.leaf_inst + li) * 12);
+          const float4* gbox = it.subleaf + (size_t)(s / tcl) * (2 * kGroups);
+          const int gr = tcl / kGroups;
+          for (int g = 0; g < kGroups && !occluded; ++g) {
+            float tn;
+            if (!slab(gbox + 2 * g, ro, r.tmx, &tn)) continue;
+            for (int j = 0; j < gr; ++j) {
+              float t;
+              if (moller_trumbore(tri + (size_t)(s + g * gr + j) * 3, ro, &t)) {
+                occluded = 1;
+                break;
+              }
+            }
+          }
         } else {
-          s = baked_start(id, t_rows, tcl);
-        }
-        for (int j = 0; j < tcl; ++j) {
-          float t;
-          if (moller_trumbore(tri + (size_t)(s + j) * 3, ro, &t)) {
-            occluded = 1;
-            break;
+          const int s = baked_start(id, t_rows, tcl);
+          for (int j = 0; j < tcl; ++j) {
+            float t;
+            if (moller_trumbore(tri + (size_t)(s + j) * 3, r, &t)) {
+              occluded = 1;
+              break;
+            }
           }
         }
         continue;
@@ -376,6 +471,12 @@ bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+inline InstTables inst_tables(const int* leaf_start, const int* leaf_inst, const float* w2o,
+                              const float* subleaf, int n_leaves) {
+  return InstTables{leaf_start, leaf_inst, w2o, reinterpret_cast<const float4*>(subleaf),
+                    n_leaves};
+}
+
 }  // namespace
 
 extern "C" int launch_bvh_closest(
@@ -388,7 +489,7 @@ extern "C" int launch_bvh_closest(
     bvh_closest_kernel<false, false, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        reinterpret_cast<const float4*>(boxes), InstTables{},
         LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr,
         nullptr, err);
   }
@@ -405,7 +506,7 @@ extern "C" int launch_bvh_anyhit(
     bvh_anyhit_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        reinterpret_cast<const float4*>(boxes), InstTables{},
         n, t_rows, tcl, n_nodes, occ_out, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -415,7 +516,7 @@ extern "C" int launch_bvh_closest_inst(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, const float* tmin, const float* tmax,
     const float* tri, const int* child, const int* axis, const float* boxes,
-    const int* leaf_start, const int* leaf_inst, const float* w2o,
+    const int* leaf_start, const int* leaf_inst, const float* w2o, const float* subleaf,
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     float* t_out, int* i_out, int* l_out, int* err, cudaStream_t stream) {
   if (n > 0) {
@@ -423,8 +524,32 @@ extern "C" int launch_bvh_closest_inst(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
-        InstTables{leaf_start, leaf_inst, w2o, n_leaves}, LinearTable{nullptr, nullptr},
+        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
+        LinearTable{nullptr, nullptr},
         n, t_rows, tcl, n_nodes, t_out, i_out, l_out, nullptr, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7 with per-tile visit counts, for measurement only (no wrapper; no
+// path launches it): counts (n / 1024, 4) int32 [pops, leaves, groups,
+// rows tested], zeroed by the caller; n % 1024 == 0.
+extern "C" int launch_bvh_closest_inst_count(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* tri, const int* child, const int* axis, const float* boxes,
+    const int* leaf_start, const int* leaf_inst, const float* w2o, const float* subleaf,
+    int n, int t_rows, int tcl, int n_nodes, int n_leaves,
+    float* t_out, int* i_out, int* l_out, int* counts, int* err, cudaStream_t stream) {
+  if (n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    bvh_closest_kernel<true, false, true><<<n / kThreads, kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
+        reinterpret_cast<const float4*>(tri), child, axis,
+        reinterpret_cast<const float4*>(boxes),
+        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
+        LinearTable{nullptr, nullptr},
+        n, t_rows, tcl, n_nodes, t_out, i_out, l_out, counts, err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -433,7 +558,7 @@ extern "C" int launch_bvh_anyhit_inst(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, const float* tmin, const float* tmax,
     const float* tri, const int* child, const int* axis, const float* boxes,
-    const int* leaf_start, const int* leaf_inst, const float* w2o,
+    const int* leaf_start, const int* leaf_inst, const float* w2o, const float* subleaf,
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     int* occ_out, int* err, cudaStream_t stream) {
   if (n > 0) {
@@ -441,7 +566,7 @@ extern "C" int launch_bvh_anyhit_inst(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
-        InstTables{leaf_start, leaf_inst, w2o, n_leaves},
+        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
         n, t_rows, tcl, n_nodes, occ_out, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -456,7 +581,7 @@ extern "C" int launch_bvh_closest_mt(
   if (n > 0) {
     bvh_closest_kernel<false, true, false><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax, nullptr, child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        reinterpret_cast<const float4*>(boxes), InstTables{},
         LinearTable{reinterpret_cast<const float4*>(mt_rows), center},
         n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, nullptr, err);
   }
@@ -475,7 +600,7 @@ extern "C" int launch_bvh_closest_count(
     bvh_closest_kernel<false, false, true><<<n / kThreads, kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{nullptr, nullptr, nullptr, 0},
+        reinterpret_cast<const float4*>(boxes), InstTables{},
         LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr,
         counts, err);
   }

@@ -15,8 +15,10 @@ from __future__ import annotations
 from dataclasses import fields
 
 import numpy as np
+import torch
 
 from pupiloptixlab_tpu_torch.accel.bvh import bvh_depth
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import make_subleaf_boxes
 from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.device import resolve_device
 from pupiloptixlab_tpu_torch.flatten.flatten import _t
@@ -42,7 +44,8 @@ _GROUPS = {
 }
 
 
-_DERIVED = ("bvh_depth", "super_boxes")  # TriSoup fields made here, not carried
+# TriSoup fields made here, not carried (subleaf_boxes is the port's own)
+_DERIVED = ("bvh_depth", "super_boxes", "subleaf_boxes")
 
 
 def _table(cls, leaves: dict, device):
@@ -57,8 +60,12 @@ def _table(cls, leaves: dict, device):
 def scene_from_arrays(tree: dict, config: RenderConfig, device=None) -> SceneData:
     parts = {g: _table(cls, tree[g], device) for g, cls in _GROUPS.items()}
     depth = bvh_depth(np.asarray(tree["tris"]["bvh_child"])) if config.bvh_nodes > 0 else 0
+    packed = parts["tris"]["packed"]
+    subleaf = (make_subleaf_boxes(packed, config.bvh_tcl) if config.instanced
+               else torch.zeros((1, 8), dtype=torch.float32, device=packed.device))
     parts["tris"] = TriSoup(**parts["tris"], bvh_depth=depth,
-                            super_boxes=super_boxes(parts["tris"]["chunk_boxes"]))
+                            super_boxes=super_boxes(parts["tris"]["chunk_boxes"]),
+                            subleaf_boxes=subleaf)
     for g, cls in _GROUPS.items():
         if g != "tris":
             parts[g] = cls(**parts[g])

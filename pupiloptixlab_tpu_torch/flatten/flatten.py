@@ -41,6 +41,7 @@ from pupiloptixlab_tpu_torch.accel.bvh import (
     bvh_depth,
     pick_leaf_size,
 )
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import make_subleaf_boxes
 from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.flatten.types import (
     N_SLOTS,
@@ -872,8 +873,9 @@ def flatten_scene(
         bvh_tcl = inst_tab["tcl"]
         chunk_boxes = _t(np.zeros((max(packed.shape[0] // tc, 1), 8), np.float32),
                          device=device)
+        packed_t = _t(packed, device=device)
         tris = TriSoup(
-            packed=_t(packed, device=device),
+            packed=packed_t,
             chunk_boxes=chunk_boxes,
             super_boxes=super_boxes(chunk_boxes),
             attrs=_t(attrs, device=device),
@@ -886,6 +888,7 @@ def flatten_scene(
             leaf_inst=_t(inst_tab["leaf_inst"], device=device),
             inst_w2o=_t(inst_tab["inst_w2o"], device=device),
             inst_packed=_t(inst_tab["inst_packed"], device=device),
+            subleaf_boxes=make_subleaf_boxes(packed_t, bvh_tcl),
             bvh_depth=bvh_depth(bvh_ch),
         )
         tri_count = inst_tab["tri_count_padded"]
@@ -905,6 +908,7 @@ def flatten_scene(
             leaf_inst=torch.zeros(1, dtype=torch.int32, device=device),
             inst_w2o=torch.zeros((1, 12), dtype=torch.float32, device=device),
             inst_packed=torch.zeros((1, 16), dtype=torch.float32, device=device),
+            subleaf_boxes=torch.zeros((1, 8), dtype=torch.float32, device=device),
             bvh_depth=bvh_depth(bvh_ch) if bvh_nodes > 0 else 0,
         )
 

@@ -121,7 +121,10 @@ class TriSoup:
     per-instance leaf boxes whose leaf ids ``-(li+1)`` index
     ``leaf_start`` / ``leaf_inst``, and the traversal maps the ray into
     the leaf's instance space through ``inst_w2o`` (directions are not
-    renormalised, so t stays the world parameter)."""
+    renormalised, so t stays the world parameter). ``subleaf_boxes`` is
+    the port's own: 8 object-space boxes a unique leaf
+    (accel/bvh_traverse.py ``make_subleaf_boxes``), derived from ``packed``
+    once a flatten, which the instanced refit never changes."""
 
     packed: torch.Tensor       # (T,12) [p0, e1, e2, pad]
     chunk_boxes: torch.Tensor  # (T/64, 8)
@@ -136,6 +139,7 @@ class TriSoup:
     inst_w2o: torch.Tensor     # (I, 12) f32 world->object 3x4 row-major
     inst_packed: torch.Tensor  # (I, INST_COLS) f32 shading row
     super_boxes: torch.Tensor  # (G, 8) over groups of 32 chunk boxes (accel/sweep.py)
+    subleaf_boxes: torch.Tensor  # (T/tcl*8, 8) object-space group boxes (K7/K8); (1, 8) baked
     bvh_depth: int = 0
 
 

@@ -56,9 +56,11 @@ KERNELS = {
     "bvh_anyhit": ("bvh_traverse", "launch_bvh_anyhit",
                    [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "bvh_closest_inst": ("bvh_traverse", "launch_bvh_closest_inst",
-                         [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P] * 5),
+                         [_P] * 8 + [_P] * 8 + [_I] * 5 + [_P] * 5),
+    "bvh_closest_inst_count": ("bvh_traverse", "launch_bvh_closest_inst_count",
+                               [_P] * 8 + [_P] * 8 + [_I] * 5 + [_P] * 6),
     "bvh_anyhit_inst": ("bvh_traverse", "launch_bvh_anyhit_inst",
-                        [_P] * 8 + [_P] * 7 + [_I] * 5 + [_P] * 3),
+                        [_P] * 8 + [_P] * 8 + [_I] * 5 + [_P] * 3),
     "bvh_closest_mt": ("bvh_traverse", "launch_bvh_closest_mt",
                        [_P] * 8 + [_P] * 5 + [_I] * 4 + [_P] * 4),
     "gather_planes": ("gather", "launch_gather_planes",

@@ -150,7 +150,7 @@ def _port_plain(td, tc, planes):
     t, i, leaf = bt.plain_closest_inst(*p, *args, tcl=tc.bvh_tcl)
     occ = bt.plain_anyhit_inst(*p, *args, tcl=tc.bvh_tcl)
     # the wrappers take the plain versions for tables on the CPU
-    tabs = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes, *args[1:])
+    tabs = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes, *args[1:], tr.subleaf_boxes)
     kw = dict(tcl=tc.bvh_tcl, depth=tr.bvh_depth)
     assert all(torch.equal(a, b) for a, b in zip(bt.bvh_closest_inst(*p, *tabs, **kw), (t, i, leaf)))
     assert torch.equal(bt.bvh_anyhit_inst(*p, *tabs, **kw), occ)
@@ -253,7 +253,8 @@ def test_frame_matches_reference(pair):
 
 def test_instanced_tables_off_the_cpu_reach_the_kernels(monkeypatch):
     """A tensor off the CPU goes to the K7/K8 launchers (which raise here: no
-    nvcc, no card); the wrappers never fall back to the plain scan."""
+    nvcc, no card); the wrappers never fall back to the plain scan, and
+    raise on a sub-leaf table of the wrong shape, type, layout or device."""
     def no_launcher(name):
         raise RuntimeError(f"launch {name}")
 
@@ -264,10 +265,19 @@ def test_instanced_tables_off_the_cpu_reach_the_kernels(monkeypatch):
             torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros((8, 8), device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta"),
             torch.zeros(2, dtype=torch.int32, device="meta"), torch.zeros((1, 12), device="meta"))
+    sub = torch.zeros((16, 8), device="meta")  # 64 rows in leaves of 32: 2 x 8 groups
+    bad = (torch.zeros((1, 8), device="meta"), torch.zeros((16, 8)),
+           torch.zeros((16, 8), dtype=torch.float64, device="meta"),
+           torch.zeros((8, 16), device="meta").t())
     for fn, name in ((bt.bvh_closest_inst, "bvh_closest_inst"),
                      (bt.bvh_anyhit_inst, "bvh_anyhit_inst")):
         with pytest.raises(RuntimeError, match=f"launch {name}"):
-            fn(*p, *tabs, tcl=32, depth=2)
+            fn(*p, *tabs, sub, tcl=32, depth=2)
         with pytest.raises(ValueError, match="stack"):
-            fn(*p, *tabs, tcl=32, depth=19)
+            fn(*p, *tabs, sub, tcl=32, depth=19)
+        for b in bad:
+            with pytest.raises(ValueError, match="subleaf_boxes"):
+                fn(*p, *tabs, b, tcl=32, depth=2)
+        with pytest.raises(TypeError, match="subleaf_boxes"):
+            fn(*p, *tabs, tcl=32, depth=2)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
