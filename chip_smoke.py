@@ -4,9 +4,11 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 K3 and K4 alone:                  python3 chip_smoke.py --tables LABEL [--package DIR]
 K7 and K8 alone:                  python3 chip_smoke.py --inst LABEL [--package DIR]
+K1, K2 and K11 alone:             python3 chip_smoke.py --bvh LABEL [--package DIR]
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
-timing in the same call; main_tables and main_inst say what they run.)
+timing in the same call; main_tables, main_inst and main_bvh say what they
+run.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -30,7 +32,15 @@ Phases (each fails the run on its first fault; nothing is caught):
               time apart from issue time (split_time_ms); one call of each
               wrapper form under torch.profiler must
               issue exactly one kernel, its own; the launch path's pieces
-              timed on the host
+              timed on the host; the sub-leaf gates of K1/K2
+              (check_bvh_subleaf_gates): K1 and K2 with the sub-leaf table
+              against the same kernels with an all-pass table (the full
+              leaf scan) on all 2,073,600 lanes of the primary, bounce,
+              shadow, unjittered and vertical rays (t bit-equal, rows and
+              flags equal), a tie across two groups of one leaf that K1
+              must give to the lower row, and the counting launcher
+              bvh_closest_visits against tree_walk's pops, leaves, groups
+              and rows on 1,024 seeded primary lanes
   4. frame    render_frame on the mesh_env BVH route at 1920x1080, depth 4:
               1 warm-up + 2 timed frames, launch counters reset just before
               and read just after; fails unless K1-K4 each launched
@@ -70,7 +80,8 @@ Phases (each fails the run on its first fault; nothing is caught):
               through its DMA ring) flattened at 1920x1080: K1 on primary and
               bounce rays and K2 on shadow rays exact against their plain
               versions on 65,536-lane subsets (the plain sweep over 405k rows
-              at every lane would take minutes) and timed at full N; K3 and K4
+              at every lane would take minutes) and timed at full N; the
+              sub-leaf gates of phase 3 on its five ray sets; K3 and K4
               at its shapes; render_frame 1 warm-up + 2 timed with the counts
               reset before and read after (K1-K4 must launch); the oracle gate
               of tests/test_oracle_parity.py at 48x48, 128 spp
@@ -105,7 +116,10 @@ Phases (each fails the run on its first fault; nothing is caught):
               tables (the sub-leaf boxes too) as they are, and give a fresh
               flatten's tables on live rows; refit and fresh flatten are
               timed; after the instanced edit K7 on 8,192 lanes of the
-              primary rays against the plain leaf scan
+              primary rays against the plain leaf scan; after the mesh_env
+              edit the baked sub-leaf table (row order kept, group boxes
+              rebuilt from the moved rows, equal to a numpy build on live
+              rows) and K1 against the brute sweep on 8,192 lanes
  13. denoise  K9 (atrous_iter) alone on bench.py's inputs (seed 3: random colour
               and albedo, unit normals) at 1920x1080, guided and unguided: each
               of the 5 launches of a denoise against its plain version on the
@@ -139,9 +153,11 @@ Phases (each fails the run on its first fault; nothing is caught):
               triangles, a depth-11 tree whose walk may need 78 stack entries)
               at 65,536 rays, equal to their plain versions (rows equal, t
               bit-equal, flags equal), with the deepest stack the walk
-              reached; (b) K11 (bvh_closest(count_iters=True)) on mesh_env's
-              1080p primary rays: t/idx bit-equal to K1 at full N, counts
-              equal to plain_closest_counts on 64 whole tiles, timed in turns
+              reached, and K1/K2 with its sub-leaf table equal to the
+              all-pass table's run on all 65,536 rays; (b) K11
+              (bvh_closest(count_iters=True)) on mesh_env's 1080p primary
+              rays: t/idx bit-equal to K1 at full N, counts equal to
+              plain_closest_counts on 64 whole tiles, timed in turns
               with K1, and the spread of the tiles' pops; (c) tile_costs and
               balanced_tile_perm for 1 and 3 ranks, render_frame with each
               permutation bit-equal to the frame without one (1080p, depth
@@ -163,8 +179,9 @@ written once) over 3.35 TB/s and the float operations this run's rays need
 over 67 TFLOP/s (FP32 outside the tensor cores), both from the H100 SXM data
 sheet. For the traversals and the culled sweep the operations are a floor
 counted from this run's rays (the box tests every live ray must make and
-the one leaf or chunk every hit ray must test; K7/K8: the ray transform
-and one row test a hit, whatever the kernel tests). K9's operations are counted
+the tests every hit ray must make: one row, K1, K11 and K7 18 +
+MT_FLOPS_CLOSEST, K2 MT_FLOPS_ANY, K8 18 + MT_FLOPS_ANY; K10 its leaf's 32
+linear-form rows; K5/K6 the one chunk; whatever the kernel tests). K9's operations are counted
 per tap (41 guided, 18 unguided) plus 10 per pixel, as csrc/atrous.cu says.
 
 In the {"kernels": [...]} line each kernel's ms, plain_ms, library_ms and
@@ -701,13 +718,15 @@ def check_traversal(scene, data, config, rays, lanes, out, bounds, plain_subset)
     rays of one scene: exact against the brute sweep on ``lanes``, timed at
     full N. With ``plain_subset`` the plain versions are timed on the lane
     subset they are compared on (big_env: the brute sweep over 405k rows at
-    every lane would take minutes), else at full N. Sums go to ``out``."""
+    every lane would take minutes), else at full N. Sums go to ``out``. The
+    bound counts one row test a hit (18 + MT_FLOPS_CLOSEST), as K7's does,
+    whatever the kernel tests."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
 
     tris = data.tris
-    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    tabs = bvh_tables(tris)
     kw = dict(tcl=config.bvh_tcl, depth=tris.bvh_depth)
     n = config.width * config.height
     k1, k2 = out["bvh_closest"], out["bvh_anyhit"]
@@ -733,8 +752,7 @@ def check_traversal(scene, data, config, rays, lanes, out, bounds, plain_subset)
             lambda: bt.plain_closest(*full, tris.packed))
         bound, by = bounds["bvh_closest"].add(
             nbytes(*full, *tabs, t_k, i_k),
-            live_of(full) * 8 * SLAB_FLOPS
-            + int((i_k >= 0).sum()) * config.bvh_tcl * MT_FLOPS_CLOSEST)
+            live_of(full) * 8 * SLAB_FLOPS + int((i_k >= 0).sum()) * (18 + MT_FLOPS_CLOSEST))
         plain_n = lanes.numel() if plain_subset else n
         log(f"  K1 {scene} {label}: kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms at "
             f"N={plain_n}, bound {bound:.4f} ms ({by})")
@@ -787,6 +805,8 @@ def phase_kernels(data, config, cam, results):
     out["bvh_closest"]["hits"] = 0
     bounds = {"bvh_closest": Bound(), "bvh_anyhit": Bound()}
     check_traversal("mesh_env", data, config, rays, lanes, out, bounds, plain_subset=False)
+    results["subleaf_mesh_env"] = check_bvh_subleaf_gates(
+        "mesh_env", data, config, bvh_ray_sets(data, config, cam))
 
     results["kernels"] = out
     bounds.update(check_mesh_env_tables(data, rays, results))
@@ -1045,8 +1065,7 @@ def phase_sweep(mesh_bvh, bounds, results):
     # K5 against K1 at full N on the same rays. The two tables hold the same
     # triangles in another row order, so rows are compared by their content.
     bvh_data, bvh_config = mesh_bvh
-    bt_tabs = (bvh_data.tris.packed, bvh_data.tris.bvh_child, bvh_data.tris.bvh_axis,
-               bvh_data.tris.bvh_boxes)
+    bt_tabs = bvh_tables(bvh_data.tris)
     # and on unjittered primary rays, 1,080 of which run along the plane
     # x = 0 with a zero x direction (box faces of both tables lie in it)
     zero = torch.zeros(n, device=DEV)
@@ -1328,6 +1347,8 @@ def phase_big_env(tmp, bounds, results):
     lanes = pick_lanes(n, tris.packed.device)
     ks = results["kernels"]
     check_traversal("big_env", data, config, rays, lanes, ks, bounds, plain_subset=True)
+    rec["subleaf"] = check_bvh_subleaf_gates("big_env", data, config,
+                                             bvh_ray_sets(data, config, cam))
     check_gathers("big_env", rays["gathers"], ks["gather_planes"], bounds["gather_planes"])
     check_counts("big_env", {**rays["counts"], **env_cases(data, n, seed=2)},
                  ks["count_less"], bounds["count_less"])
@@ -1515,13 +1536,13 @@ def inst_visit_counts(data, config, rays) -> dict:
     return out
 
 
-def extra_inst_rays(data, config, cam) -> dict:
-    """Two more 1080p ray sets for K7/K8 as planes: the frame's unjittered
-    primary rays (generate_rays with zero jitter, as phase 16 (b2) makes
-    them on mesh_env), and vertical rays (direction exactly (0, -1, 0))
-    from a 1920 x 1080 grid of origins over the world tree's box, above
-    it: under an instance's rotation about y their object-space x and z
-    directions are 0 or nearly 0."""
+def extra_rays(data, config, cam) -> dict:
+    """Two more 1080p ray sets as planes: the frame's unjittered primary
+    rays (generate_rays with zero jitter, as phase 16 (b2) makes them on
+    mesh_env), and vertical rays (direction exactly (0, -1, 0)) from a
+    1920 x 1080 grid of origins over the tree's root box, above it: their
+    x and z directions are 0 (on an instanced scene, under an instance's
+    rotation about y, 0 or nearly 0 in object space)."""
     import torch
 
     from pupiloptixlab_tpu_torch.render.camera import generate_rays
@@ -1606,7 +1627,7 @@ def check_subleaf_gates(data, config, cam, rays, lanes) -> dict:
     kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
     plain_tabs = (tr.packed, tr.leaf_start, tr.leaf_inst, tr.inst_w2o)
     sets = {k: planes_of(rays[k]) for k in ("primary", "bounce", "shadow")}
-    sets.update(extra_inst_rays(data, config, cam))
+    sets.update(extra_rays(data, config, cam))
     out = {}
     for label, full in sets.items():
         t7, i7, l7 = bt.bvh_closest_inst(*full, *tabs, **kw)
@@ -1775,7 +1796,62 @@ def _leaf_boxes(tris) -> dict:
             for slot, c in enumerate(child) if c < 0}
 
 
-REFIT_K7_LANES = 8192  # K7 against the plain scan after phase 12's instanced edit
+REFIT_K7_LANES = 8192  # K7 (K1) against the plain scan (brute sweep) after phase 12's edits
+
+
+def check_subleaf_after_refit(data0, data1, config, cam) -> dict:
+    """After phase 12's mesh_env edit: the baked refit keeps the sub-leaf
+    row order, and its group boxes equal a build from the moved rows on
+    live rows: each group's box holds its live rows' vertices (float64,
+    numpy) and is no looser than the margin (``SUBLEAF_PAD`` of the box,
+    ``SCENE_PAD`` of the table's extent, one float32 rounding), a group
+    without a live row holds the never-box. Then K1 against the brute
+    sweep on ``REFIT_K7_LANES`` seeded lanes of the edited scene's primary
+    rays."""
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data1.tris
+    tcl = config.bvh_tcl
+    p = tr.packed.cpu().numpy()[:, 0:9].astype(np.float64)
+    boxes = tr.subleaf_boxes.cpu().numpy().astype(np.float64)
+    live = (p[:, 3:6] != 0).any(1) & (p[:, 6:9] != 0).any(1)
+    verts = np.stack([p[:, 0:3], p[:, 0:3] + p[:, 3:6], p[:, 0:3] + p[:, 6:9]], 1)
+    extent = float(np.abs(verts[live]).max())
+    # table row of each slot, group-major: leaf start + the leaf-local order
+    rows = (np.arange(p.shape[0]) // tcl * tcl
+            + tr.subleaf_rows.cpu().numpy().astype(np.int64))
+    lv = live[rows].reshape(-1, tcl // 8)
+    vg = verts[rows].reshape(-1, tcl // 8, 3, 3)
+    lo = np.where(lv[:, :, None, None], vg, np.inf).min((1, 2))
+    hi = np.where(lv[:, :, None, None], vg, -np.inf).max((1, 2))
+    some = lv.any(1)
+    lo, hi, box = lo[some], hi[some], boxes[some]
+    big = np.maximum(np.abs(lo), np.abs(hi)).max(1, keepdims=True)
+    margin = bt.SUBLEAF_PAD * big + bt.SCENE_PAD * extent
+    margin = margin + 2 * np.spacing(np.float32(big + margin)).astype(np.float64)
+    rec = {"order_kept": tr.subleaf_rows is data0.tris.subleaf_rows,
+           "boxes_rebuilt": not torch.equal(tr.subleaf_boxes, data0.tris.subleaf_boxes),
+           "live_groups": int(some.sum()),
+           "boxes_hold_rows": bool((box[:, 0:3] <= lo).all() and (box[:, 3:6] >= hi).all()),
+           "boxes_within_margin": bool((lo - box[:, 0:3] <= margin).all()
+                                       and (box[:, 3:6] - hi <= margin).all()),
+           "empty_groups_never": bool((boxes[~some, 0:6] == np.float32(1e30)).all())}
+    planes = primary_planes(config, cam)
+    lanes = pick_lanes(planes[0].shape[0], DEV)[:REFIT_K7_LANES]
+    sub = [x[lanes].contiguous() for x in planes]
+    t, i = bt.bvh_closest(*sub, *bvh_tables(tr), tcl=tcl, depth=tr.bvh_depth)
+    tp, ip = bt.plain_closest(*sub, tr.packed)
+    rec.update(k1_lanes=lanes.numel(), k1_hits=int((ip >= 0).sum()),
+               k1_t_off=int((t != tp).sum()), k1_rows_off=int((i != ip).sum()))
+    require(all(v for k, v in rec.items() if k in ("order_kept", "boxes_rebuilt",
+                                                   "boxes_hold_rows", "boxes_within_margin",
+                                                   "empty_groups_never"))
+            and rec["k1_hits"] > 0 and rec["k1_t_off"] == 0 and rec["k1_rows_off"] == 0,
+            f"the baked refit's sub-leaf table or K1 after the edit is off: {rec}")
+    return rec
 
 
 def check_k7_after_edit(data, config, cam) -> dict:
@@ -1895,6 +1971,8 @@ def phase_refit(inst_xml, results):
         finite = bool(torch.isfinite(bufs["frame"]).all())
         if config0.instanced:
             err["k7_after_edit"] = check_k7_after_edit(data1, config1, cam)
+        else:
+            err["subleaf_after_edit"] = check_subleaf_after_refit(data0, data1, config1, cam)
         log(f"  refit {label} ({kind}): first flatten {load_s:.3f} s, refit {refit_s * 1e3:.2f} "
             f"ms, fresh flatten of the edited scene {fresh_s:.3f} s, flatten calls "
             f"{len(calls)}, tree nodes kept {config1.bvh_nodes} (fresh {fconfig.bvh_nodes}), "
@@ -2259,8 +2337,8 @@ def phase_mt32(results, k10, bound):
             err = float((t_k[lanes][hit] - t_p[hit]).abs().max()) if bool(hit.any()) else 0.0
             ms = cuda_time_ms(lambda: bt.bvh_closest_mt(*full, *tabs, **kw), reps=5)
             # K1 on the same tables and rays at full N
-            t1, i1 = bt.bvh_closest(*full, *tabs, **kw)
-            k1_ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *tabs, **kw), reps=5)
+            t1, i1 = bt.bvh_closest(*full, *bvh_tables(tris), **kw)
+            k1_ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *bvh_tables(tris), **kw), reps=5)
             hits1 = int((i1 >= 0).sum())
             vs_k1 = compare_mt_k1(tris.packed, bt.mt_tables(tris.packed)[1], full, t_k,
                                   i_k, t1, i1)
@@ -2410,14 +2488,15 @@ def phase_parallel(tmp, results, k11, bound):
 
     # (a) the deep soup: a depth-11 tree, beyond a 64-entry stack
     soup = soup_tables(device=DEV)
-    tabs = (soup["tri"], soup["child"], soup["axis"], soup["boxes"])
+    tabs = soup_bvh_tables(soup)
     kw = dict(tcl=soup["tcl"], depth=soup["depth"])
     planes = soup_rays(soup["tri"], SUBSET)
     t1, i1 = bt.bvh_closest(*planes, *tabs, **kw)
     occ = bt.bvh_anyhit(*planes, *tabs, **kw)
     t_p, i_p = bt.plain_closest(*planes, soup["tri"])
     occ_p = bt.plain_anyhit(*planes, soup["tri"])
-    _, _, pops, _, deepest = bt.tree_walk(*planes, *tabs, soup["tcl"])
+    walk = bt.tree_walk(*planes, *tabs, soup["tcl"])
+    pops, deepest = walk["pops"], walk["deepest"]
     need = 7 * soup["depth"] + 1
     a = {"rows": soup["tri"].shape[0], "nodes": soup["n_nodes"], "depth": soup["depth"],
          "stack_bound": need, "deepest": deepest, "max_pops": int(pops.max()),
@@ -2431,13 +2510,15 @@ def phase_parallel(tmp, results, k11, bound):
     require(need > 64 and bt.stack_fits(a["depth"]) and a["rows_off"] == 0
             and a["t_bit_equal"] and a["flags_off"] == 0,
             "deep soup: K1/K2 must walk the depth-11 tree and equal their plain versions")
+    a["allpass"] = allpass_gate("the deep soup", planes, tabs, kw)
+    log(f"  (a) deep soup, the sub-leaf table against the all-pass table: {a['allpass']}")
     rec["deep_soup"] = a
     del soup, tabs, planes
 
     # (b) K11 on mesh_env's primary rays at 1080p
     data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
     tris = data.tris
-    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    tabs = bvh_tables(tris)
     kw = dict(tcl=config.bvh_tcl, depth=tris.bvh_depth)
     n = config.width * config.height
     full = primary_planes(config, cam)
@@ -2467,8 +2548,7 @@ def phase_parallel(tmp, results, k11, bound):
     ms, ms1 = float(np.mean(k11_ms)), float(np.mean(k1_ms))
     live = int((full[7] > full[6]).sum())
     b_ms, by = bound.add(nbytes(*full, *tabs, t11, i11, c11),
-                         live * 8 * SLAB_FLOPS + int((i11 >= 0).sum()) * config.bvh_tcl
-                         * MT_FLOPS_CLOSEST)
+                         live * 8 * SLAB_FLOPS + int((i11 >= 0).sum()) * (18 + MT_FLOPS_CLOSEST))
     costs = c11[:, 0].double().cpu().numpy()
     q = np.percentile(costs, [0, 25, 50, 75, 100])
     spread = {"max_over_mean": float(costs.max() / costs.mean()),
@@ -2587,7 +2667,7 @@ def phase_ring_rounds(big, results):
     btris = bdata.tris
     full = primary_planes(bconfig, bcam)
     n = bconfig.width * bconfig.height
-    btabs = (btris.packed, btris.bvh_child, btris.bvh_axis, btris.bvh_boxes)
+    btabs = bvh_tables(btris)
     t1, i1 = bt.bvh_closest(*full, *btabs, tcl=bconfig.bvh_tcl, depth=btris.bvh_depth)
     k1_ms = cuda_time_ms(lambda: bt.bvh_closest(*full, *btabs, tcl=bconfig.bvh_tcl,
                                                 depth=btris.bvh_depth), reps=3)
@@ -2610,8 +2690,7 @@ def phase_ring_rounds(big, results):
         return torch.cat(outs_t), torch.cat(outs_i)
 
     def bvh_step(best, sl, s):
-        held = tuple(x[s] for x in (ring.rows, ring.child, ring.axis, ring.boxes))
-        return ring_sweep.bvh_round(*best, sl, held, s, ring)
+        return ring_sweep.bvh_round(*best, sl, ring.shard_tables(s), s, ring)
 
     def sweep_step(best, sl, s):
         return ring_sweep.sweep_round(*best, sl, table[s * shard_rows:(s + 1) * shard_rows],
@@ -2958,6 +3037,365 @@ def main_inst(label: str) -> int:
     return 0
 
 
+BVH_MODE_LANES = 8192   # --bvh: lanes of each 1080p ray set held against the brute sweep
+VISIT_LANES = 1024      # the counting launcher held against tree_walk on these lanes
+
+
+def bvh_tables(tris) -> tuple:
+    """K1/K2/K11's table arguments after the rays: the reference's four,
+    then the sub-leaf table where the package has it (a tree before the
+    sub-leaf level, run with --bvh --package, takes four)."""
+    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    rows = getattr(tris, "subleaf_rows", None)
+    return tabs if rows is None else (*tabs, rows, tris.subleaf_boxes)
+
+
+def soup_bvh_tables(soup) -> tuple:
+    """``bvh_tables`` of the deep soup's dictionary (scene/deep_soup.py)."""
+    tabs = (soup["tri"], soup["child"], soup["axis"], soup["boxes"])
+    return tabs if "subleaf_rows" not in soup else (
+        *tabs, soup["subleaf_rows"], soup["subleaf_boxes"])
+
+
+def bare_device_ms(name, planes, tabs, scalars, want) -> tuple[float, float]:
+    """(device ms, issue ms) of one launch through the kernel's ctypes
+    launcher alone (split_time_ms): the traversal wrappers read the fault
+    flag after each launch, which waits for the card, so a wrapper call
+    cannot run ahead of it. ``scalars`` are the launcher's int arguments;
+    the outputs are made like ``want`` (the wrapper's), which the
+    launches must reproduce with the flag clear (K11's counts, which the
+    repeated launches add up, excepted)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+
+    dev = planes[0].device
+    outs = [torch.zeros_like(w) for w in want]
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (*(p.data_ptr() for p in planes), *(t.data_ptr() for t in tabs), *scalars,
+            *(o.data_ptr() for o in outs), err.data_ptr(), kernels.stream_ptr(dev))
+    fn = kernels.launcher(name)
+    dev_ms, issue_ms = split_time_ms(lambda: kernels.check(fn(*args), name), reps=5)
+    same = all(torch.equal(o, w) for o, w in list(zip(outs, want))[:2])
+    require(int(err.item()) == 0 and same,
+            f"{name}: the launcher's own calls disagree with the wrapper's")
+    return dev_ms, issue_ms
+
+
+def visits_launch(planes, tabs, tcl: int, n_nodes: int):
+    """(t, row, counts) of one launch of ``bvh_closest_visits`` (K1's walk
+    with per-tile counts (N / 1024, 4) [pops, leaves, groups, rows]; for
+    measurement only) on whole count tiles of ``planes``."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    n = planes[0].shape[0]
+    dev = planes[0].device
+    t = torch.empty(n, device=dev)
+    i = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros((n // bt.COUNT_TILE, 4), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = kernels.launcher("bvh_closest_visits")(
+        *(p.data_ptr() for p in planes), *(x.data_ptr() for x in tabs), n, tabs[0].shape[0],
+        tcl, n_nodes, t.data_ptr(), i.data_ptr(), counts.data_ptr(), err.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "bvh_closest_visits")
+    require(int(err.item()) == 0, "bvh_closest_visits: traversal fault flag")
+    return t, i, counts
+
+
+def bvh_visits(planes, tabs, tcl, depth, n_nodes) -> dict:
+    """The work of K1's walk per live ray on whole count tiles of
+    ``planes``: inner pops, leaves, sub-leaf groups entered and rows tested,
+    from the counting launcher ``bvh_closest_visits`` (measurement only: no
+    wrapper, no path launches it), whose (t, row) must equal K1's; a
+    package without it (before the sub-leaf level) reports K11's pops and
+    leaves, and ``tcl`` rows a leaf, which is what its K1 tests."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    n = planes[0].shape[0] // bt.COUNT_TILE * bt.COUNT_TILE
+    full = [p[:n].contiguous() for p in planes]
+    t1, i1 = bt.bvh_closest(*full, *tabs, tcl=tcl, depth=depth)
+    if "bvh_closest_visits" in kernels.KERNELS:
+        t, i, counts = visits_launch(full, tabs, tcl, n_nodes)
+        tot = counts.to(torch.int64).sum(dim=0).tolist()
+        source = "bvh_closest_visits"
+    else:
+        t, i, counts = bt.bvh_closest(*full, *tabs, tcl=tcl, depth=depth, count_iters=True)
+        tot = counts.to(torch.int64).sum(dim=0).tolist()
+        tot = [tot[0], tot[1], None, tot[1] * tcl]
+        source = "K11, tcl rows a leaf"
+    require(bool(torch.equal(t, t1) and torch.equal(i, i1)),
+            "the counting walk disagrees with K1")
+    live = max(int((full[7] > full[6]).sum()), 1)
+    rec = {"live": live, "hits": int((i1 >= 0).sum()), "source": source,
+           "pops_per_ray": tot[0] / live, "leaves_per_ray": tot[1] / live,
+           "groups_per_ray": None if tot[2] is None else tot[2] / live,
+           "rows_per_ray": tot[3] / live}
+    return rec
+
+
+def bvh_ray_sets(data, config, cam) -> dict:
+    """The five 1080p ray sets of one baked scene as planes: the first
+    bounce's primary, bounce and shadow rays (main_path_rays), the
+    unjittered primary rays and the vertical rays (extra_rays)."""
+    rays = main_path_rays(data, config, cam)
+    sets = {k: planes_of(rays[k]) for k in ("primary", "bounce", "shadow")}
+    sets.update(extra_rays(data, config, cam))
+    return sets
+
+
+def check_bvh_scene(label, data, config, cam, out) -> None:
+    """--bvh on one baked scene at 1080p: K1 and K2 on the five ray sets,
+    each against the brute sweep on ``BVH_MODE_LANES`` seeded lanes, timed
+    at full N (device apart from issue through the bare launchers), the
+    work of a ray (bvh_visits), K11's device time on the primary rays, and
+    the sub-leaf gates where the package has the sub-leaf level."""
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    tabs = bvh_tables(tr)
+    kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+    scal = (tr.packed.shape[0], config.bvh_tcl, tr.bvh_axis.shape[0])
+    sets = bvh_ray_sets(data, config, cam)
+    n = config.width * config.height
+    lanes = pick_lanes(n, DEV)[:BVH_MODE_LANES]
+    rec = {"rows": tr.packed.shape[0], "tcl": config.bvh_tcl, "nodes": config.bvh_nodes,
+           "depth": tr.bvh_depth, "sets": {}}
+    for name, full in sets.items():
+        t1, i1 = bt.bvh_closest(*full, *tabs, **kw)
+        occ = bt.bvh_anyhit(*full, *tabs, **kw)
+        sub = [p[lanes] for p in full]
+        t_p, i_p = bt.plain_closest(*sub, tr.packed)
+        occ_p = bt.plain_anyhit(*sub, tr.packed)
+        off = {"k1_t_off": int((t1[lanes] != t_p).sum()),
+               "k1_rows_off": int((i1[lanes] != i_p).sum()),
+               "k2_flags_off": int((occ[lanes] != occ_p).sum())}
+        require(all(v == 0 for v in off.values()),
+                f"--bvh {label} {name}: K1/K2 disagree with the brute sweep: {off}")
+        k1_dev, k1_issue = bare_device_ms("bvh_closest", full, tabs, (n, *scal), (t1, i1))
+        k2_dev, k2_issue = bare_device_ms("bvh_anyhit", full, tabs, (n, *scal), (occ,))
+        s = {"hits": int((i1 >= 0).sum()), "occluded": int(occ.sum()), **off,
+             "k1_device_ms": k1_dev, "k1_issue_ms": k1_issue,
+             "k2_device_ms": k2_dev, "k2_issue_ms": k2_issue,
+             "visits": bvh_visits(full, tabs, config.bvh_tcl, tr.bvh_depth, scal[2])}
+        log(f"  {label} {name}: {s}")
+        rec["sets"][name] = s
+    full = sets["primary"]
+    t11, i11, c11 = bt.bvh_closest(*full, *tabs, **kw, count_iters=True)
+    rec["k11_device_ms"], rec["k11_issue_ms"] = bare_device_ms(
+        "bvh_closest_count", full, tabs, (n, *scal), (t11, i11, c11))
+    if len(tabs) == 6:
+        rec["subleaf"] = check_bvh_subleaf_gates(label, data, config, sets)
+    out[label] = rec
+
+
+def allpass_table(tabs):
+    """The sub-leaf table that makes K1/K2 the full leaf scan, by data and
+    not by a flag: the rows of each leaf in table order and every group box
+    +-1e30. ``tabs`` is ``bvh_tables``'s six."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    rows, boxes = tabs[4], tabs[5]
+    tcl = rows.shape[0] * bt.SUBLEAF_GROUPS // boxes.shape[0]
+    order = (torch.arange(rows.shape[0], device=rows.device) % tcl).to(rows.dtype)
+    allpass = torch.tensor([-1e30, -1e30, -1e30, 1e30, 1e30, 1e30, 0.0, 0.0],
+                           device=boxes.device).expand_as(boxes).contiguous()
+    return (*tabs[:4], order, allpass)
+
+
+def allpass_gate(label, planes, tabs, kw) -> dict:
+    """K1 and K2 with the sub-leaf table against the same kernels with the
+    all-pass table on every lane of ``planes``: t bit-equal, rows and flags
+    equal."""
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    full = allpass_table(tabs)
+    t1, i1 = bt.bvh_closest(*planes, *tabs, **kw)
+    ta, ia = bt.bvh_closest(*planes, *full, **kw)
+    o2 = bt.bvh_anyhit(*planes, *tabs, **kw)
+    oa = bt.bvh_anyhit(*planes, *full, **kw)
+    rec = {"lanes": planes[0].shape[0], "hits": int((i1 >= 0).sum()),
+           "occluded": int(o2.sum()), "k1_t_off": int((t1 != ta).sum()),
+           "k1_rows_off": int((i1 != ia).sum()), "k2_flags_off": int((o2 != oa).sum())}
+    require(rec["hits"] > 0 and all(v == 0 for k, v in rec.items() if k.endswith("_off")),
+            f"K1/K2 with the sub-leaf table disagree with the full leaf scan on {label}: {rec}")
+    return rec
+
+
+def bvh_tie_case():
+    """A one-leaf baked table (16 rows, one root node) in which rows 0 and 9
+    hold the same triangle T = (0,0,0), (1,0,0), (0,1,0). Along x, 7 rows
+    lie below T's centroid and 7 above, so the first median split puts row
+    0 and row 9 into different halves, and their groups into different
+    groups for 4 or 8 groups a leaf; row 0 shares its group with an
+    off-path triangle at z = -1 (row 1), row 9 with one at z = -3 (row 3).
+    The rays, from z = -5 along +z through T, enter row 9's group first and
+    then row 0's, which starts before the hit. Both rows hit at one t: K1
+    must return row 0, as the brute sweep does. Returns (planes, tables,
+    tcl)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tcl = 16
+
+    def tri(x, z):
+        return torch.tensor([x, 0.0, z, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+
+    packed = torch.zeros((tcl, 12))
+    packed[0, 0:9] = packed[9, 0:9] = tri(0.0, 0.0)
+    packed[1, 0:9] = tri(-2.5, -1.0)
+    packed[3, 0:9] = tri(2.5, -3.0)
+    far = [r for r in range(tcl) if r not in (0, 1, 3, 9)]
+    for k, r in enumerate(far):  # off-path triangles, 6 far below x = 0, 6 far above
+        packed[r, 0:9] = tri(-10.0 * (k + 1) if k < 6 else 10.0 * (k - 5), 0.0)
+    boxes = torch.zeros((8, 8))
+    boxes[:, 0:6] = 1e30  # empty slots: the never-box
+    boxes[0, 0:6] = torch.tensor([-60.0, 0.0, -3.0, 61.0, 1.0, 0.0])
+    child = torch.tensor([-1, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32)
+    packed, boxes, child = (x.to(DEV) for x in (packed, boxes, child))
+    rows, sub = bt.make_baked_subleaf(packed, tcl)
+    tabs = (packed, child, torch.zeros(1, dtype=torch.int32, device=DEV), boxes, rows, sub)
+    g = torch.linspace(0.05, 0.45, 32, device=DEV)
+    gx, gy = [a.reshape(-1).contiguous() for a in torch.meshgrid(g, g, indexing="ij")]
+    n = gx.shape[0]
+    planes = [gx, gy, torch.full((n,), -5.0, device=DEV), torch.zeros(n, device=DEV),
+              torch.zeros(n, device=DEV), torch.ones(n, device=DEV),
+              torch.full((n,), 1e-3, device=DEV), torch.full((n,), 1e16, device=DEV)]
+    return planes, tabs, tcl
+
+
+def check_bvh_subleaf_gates(label, data, config, sets) -> dict:
+    """K1/K2 with the sub-leaf table against the all-pass table on every
+    lane of each 1080p ray set of one scene (allpass_gate), then the
+    cross-group tie (bvh_tie_case), which K1 must give to the lower row,
+    and the counting launcher against tree_walk's counts on
+    ``VISIT_LANES`` primary rays."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    tabs = bvh_tables(tr)
+    kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+    out = {}
+    for name, full in sets.items():
+        out[name] = allpass_gate(f"{label} {name}", full, tabs, kw)
+        log(f"  sub-leaf {label} {name}: {out[name]}")
+    planes, ttabs, tcl = bvh_tie_case()
+    rows = ttabs[4].long()
+    group = {int(rows[j]): j // (tcl // bt.SUBLEAF_GROUPS) for j in range(tcl)}
+    t1, i1 = bt.bvh_closest(*planes, *ttabs, tcl=tcl, depth=1)
+    tp, ip = bt.plain_closest(*planes, ttabs[0])
+    occ = bt.bvh_anyhit(*planes, *ttabs, tcl=tcl, depth=1)
+    tie = {"lanes": planes[0].shape[0], "groups_of_rows_0_9": [group[0], group[9]],
+           "rows": sorted(set(i1.tolist())), "plain_rows": sorted(set(ip.tolist())),
+           "t_equal_plain": bool(torch.equal(t1, tp)), "occluded": int(occ.sum())}
+    log(f"  sub-leaf tie across groups: {tie}")
+    require(group[0] != group[9] and tie["rows"] == [0] and tie["plain_rows"] == [0]
+            and tie["t_equal_plain"] and tie["occluded"] == tie["lanes"],
+            "K1 must keep the lower row of a tie across sub-leaf groups")
+    out["tie"] = tie
+    # the counting launcher against tree_walk on seeded primary rays
+    lanes = pick_lanes(sets["primary"][0].shape[0], DEV)[:VISIT_LANES]
+    sub = [p[lanes].contiguous() for p in sets["primary"]]
+    walk = bt.tree_walk(*sub, *tabs, config.bvh_tcl)
+    want = [int(walk[k].sum()) for k in ("pops", "leaves", "groups", "rows")]
+    t, i, counts = visits_launch(sub, tabs, config.bvh_tcl, tr.bvh_axis.shape[0])
+    got = counts.to(torch.int64).sum(0).tolist()
+    vis = {"lanes": VISIT_LANES, "walk": want, "launcher": got,
+           "t_equal": bool(torch.equal(t, walk["t"])),
+           "rows_equal": bool(torch.equal(i, walk["idx"]))}
+    log(f"  visits {label}: counting launcher against tree_walk {vis}")
+    require(got == want and vis["t_equal"] and vis["rows_equal"],
+            "the counting launcher disagrees with tree_walk's counts")
+    out["visits_vs_walk"] = vis
+    return out
+
+
+def check_deep_soup_bvh(out) -> None:
+    """--bvh on the deep soup (scene/deep_soup.py, 65,536 rays): K1/K2
+    against the brute sweep on every ray, device times, the work of a ray,
+    and the all-pass gate where the package has the sub-leaf level."""
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.scene.deep_soup import soup_rays, soup_tables
+
+    soup = soup_tables(device=DEV)
+    tabs = soup_bvh_tables(soup)
+    kw = dict(tcl=soup["tcl"], depth=soup["depth"])
+    planes = soup_rays(soup["tri"], SUBSET)
+    scal = (soup["tri"].shape[0], soup["tcl"], soup["n_nodes"])
+    t1, i1 = bt.bvh_closest(*planes, *tabs, **kw)
+    occ = bt.bvh_anyhit(*planes, *tabs, **kw)
+    t_p, i_p = bt.plain_closest(*planes, soup["tri"])
+    occ_p = bt.plain_anyhit(*planes, soup["tri"])
+    rec = {"rows": soup["tri"].shape[0], "tcl": soup["tcl"], "depth": soup["depth"],
+           "hits": int((i_p >= 0).sum()), "k1_t_off": int((t1 != t_p).sum()),
+           "k1_rows_off": int((i1 != i_p).sum()), "k2_flags_off": int((occ != occ_p).sum())}
+    require(all(v == 0 for k, v in rec.items() if k.endswith("_off")),
+            f"--bvh deep soup: K1/K2 disagree with the brute sweep: {rec}")
+    rec["k1_device_ms"], rec["k1_issue_ms"] = bare_device_ms(
+        "bvh_closest", planes, tabs, (SUBSET, *scal), (t1, i1))
+    rec["k2_device_ms"], rec["k2_issue_ms"] = bare_device_ms(
+        "bvh_anyhit", planes, tabs, (SUBSET, *scal), (occ,))
+    rec["visits"] = bvh_visits(planes, tabs, soup["tcl"], soup["depth"], scal[2])
+    if len(tabs) == 6:
+        rec["allpass"] = allpass_gate("deep soup", planes, tabs, kw)
+    log(f"  deep soup: {rec}")
+    out["deep_soup"] = rec
+
+
+def main_bvh(label: str) -> int:
+    """``--bvh``: only the K1/K2/K11 checks, on mesh_env and big_env at
+    1080p (five ray sets each: check_bvh_scene) and on the deep soup's
+    65,536 rays. With ``--package DIR`` the package is imported from DIR, so
+    that a parent tree's kernels run under this script's timing in the same
+    call. big_env is generated once into ``_work/bvh_mode`` (gitignored) and
+    reused by later runs of the same call. Prints the card's line, then the
+    results as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+
+    log(f"[bvh] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "package": str(Path(kernels.__file__).parent), "label": label,
+                     "registers": {stem: [ln.strip() for ln in text.splitlines()
+                                          if "registers" in ln or "spill" in ln
+                                          or "entry function" in ln]
+                                   for stem, text in kernels.BUILD_LOG.items()
+                                   if stem == "bvh_traverse"}}
+    big_dir = REPO / "_work" / "bvh_mode"
+    if not (big_dir / "big_env.xml").exists():
+        subprocess.run([sys.executable, str(REPO / "tools" / "make_big_scene.py"),
+                        str(big_dir), str(BIG_GRID)], check=True, capture_output=True,
+                       timeout=600)
+    with torch.inference_mode():
+        for name, xml in (("mesh_env", MESH_ENV),
+                          ("big_env", scene_copy(big_dir / "big_env.xml", *FILM, big_dir))):
+            data, config, cam = load_tables(xml, *FILM, DEV)
+            check_bvh_scene(name, data, config, cam, results)
+            del data
+            torch.cuda.empty_cache()
+        check_deep_soup_bvh(results)
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def kernels_line(results, runs) -> list:
     """Each kernel's launches over the runs of the main paths it is on (each
     run had the counts set to 0 just before and read just after): the paths
@@ -2986,10 +3424,11 @@ def cli() -> int:
     args = sys.argv[1:]
     if not args:
         return main()
-    modes = {"--tables": main_tables, "--inst": main_inst}
+    modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh}
     if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
-        print("usage: chip_smoke.py [--tables LABEL | --inst LABEL] [--package DIR]",
+        print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL] "
+              "[--package DIR]",
               file=sys.stderr)
         return 2
     root = Path(args[3]).resolve() if len(args) == 4 else REPO

@@ -13,6 +13,16 @@ argument order as its ``bvh_closest`` and ``bvh_anyhit``. Kernels
 The TPU streams triangle tables above 8 MB through a DMA ring; K1/K2 read
 every table from device memory, so one kernel serves both.
 
+K1, K2 and K11 also take the port's sub-leaf table of a baked tree
+(``make_baked_subleaf``: per leaf of ``tcl`` rows, a leaf-local row order
+in 8 spatial groups and one world box a group) and test a leaf's rows only
+in the groups whose boxes the ray enters: K1 and K11 nearest group first,
+stopping once the nearest group left starts beyond the best hit, K2 in
+table order, stopping at its first hit. The results stay the reference's:
+the tie rule compares (t, row) outright, so the order in which rows are
+tested does not matter, and a group the ray does not enter before the best
+hit holds no row that could win. The plain versions do not read the table.
+
 The plain versions of K1/K2 (``plain_closest``, ``plain_anyhit``) are the
 brute-force sweep of accel/sweep.py over every triangle: the closest hit
 with ties at equal t going to the lowest row, a miss (1e16, -1). Those of
@@ -31,7 +41,9 @@ nodes taken off the stack, pruned ones included; leaves taken off and
 tested), as (N / 1024, 2) int32 [pops, leaves]. A brute sweep walks no tree,
 so its plain version (``plain_closest_counts``) is K1's walk itself, ray by
 ray in lockstep in PyTorch (``tree_walk``): the same stack, visit order,
-pruning and tie rule, and the same counts.
+pruning, sub-leaf step and tie rule, and the same counts (with the groups
+and rows it tests, which the measurement launcher ``bvh_closest_visits``
+counts on the card).
 
 K10 walks K1's tree (32-row leaves) but tests each leaf through the
 reference's linear form (``mt_cols_table``): det, u*det, v*det and t*det
@@ -81,8 +93,8 @@ def _check_args(name, planes, tri, child, axis, boxes, tcl, depth):
     ):
         if (t.device != dev or t.dtype != dt or t.dim() != len(shape)
                 or (len(shape) == 2 and t.shape[1] != shape[1])
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {label} must be contiguous {dt} "
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {label} must be contiguous 16-byte aligned {dt} "
                              f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)}")
     n_nodes = axis.shape[0]
     if child.shape[0] != n_nodes * 8 or boxes.shape[0] != n_nodes * 8 or n_nodes == 0:
@@ -96,6 +108,29 @@ def _check_args(name, planes, tri, child, axis, boxes, tcl, depth):
     return n, n_nodes
 
 
+KERNEL_TCLS = (16, 32, 64, 128)  # leaf sizes K1/K2/K11 are compiled for
+
+
+def _check_baked_subleaf(name, tri, subleaf_rows, subleaf_boxes, tcl):
+    """The sub-leaf table of a baked tree (``make_baked_subleaf``): (T,)
+    uint8 leaf-local row order and (T / tcl * 8, 8) float32 group boxes,
+    contiguous, on the table's device, 16-byte aligned (the kernels read
+    them in 16-byte vectors)."""
+    t_rows = tri.shape[0]
+    if tcl not in KERNEL_TCLS or t_rows % tcl:
+        raise ValueError(f"{name}: leaf size {tcl} over {t_rows} rows has no kernel "
+                         f"(compiled for leaves of {KERNEL_TCLS} rows)")
+    for label, t, dt, shape in (("subleaf_rows", subleaf_rows, torch.uint8, (t_rows,)),
+                                ("subleaf_boxes", subleaf_boxes, torch.float32,
+                                 (t_rows // tcl * SUBLEAF_GROUPS, 8))):
+        if (t.device != tri.device or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {label} must be contiguous 16-byte aligned {dt} "
+                             f"{shape} on {tri.device} (make_baked_subleaf of {t_rows} rows "
+                             f"in leaves of {tcl}), got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+
+
 def _raise_on_flag(name, err):
     code = int(err.item())
     if code:
@@ -105,16 +140,20 @@ def _raise_on_flag(name, err):
 
 
 def bvh_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-                tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16, depth: int = 1,
-                count_iters: bool = False):
+                tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows, subleaf_boxes,
+                tcl: int = 16, depth: int = 1, count_iters: bool = False):
     """Closest-hit traversal over ray planes; returns (t, idx) with
-    (1e16, -1) on a miss. ``depth``: the tree depth the flatten records
-    (checked against the kernel's stack). With ``count_iters`` (K11; N a
-    multiple of 1024) it returns (t, idx, counts): the same t and idx, and
-    per tile of 1024 rays the (N / 1024, 2) int32 sums [pops, leaves]."""
+    (1e16, -1) on a miss. ``subleaf_rows`` / ``subleaf_boxes``: the tree's
+    sub-leaf table (``make_baked_subleaf``, ``TriSoup``'s fields). ``depth``:
+    the tree depth the flatten records (checked against the kernel's
+    stack). With ``count_iters`` (K11; N a multiple of 1024) it returns (t,
+    idx, counts): the same t and idx, and per tile of 1024 rays the (N /
+    1024, 2) int32 sums [pops, leaves]."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
+    _check_baked_subleaf("bvh_closest", tri, subleaf_rows, subleaf_boxes, tcl)
     if count_iters:
-        return _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl, depth)
+        return _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows,
+                              subleaf_boxes, tcl, depth)
     if tri.device.type == "cpu":
         return plain_closest(*planes, tri)
     n, n_nodes = _check_args("bvh_closest", planes, tri, bvh_child, bvh_axis,
@@ -125,22 +164,24 @@ def bvh_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
     fn = kernels.launcher("bvh_closest")
     kernels.LAUNCHES["bvh_closest"] += 1
     rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), bvh_child.data_ptr(),
-            bvh_axis.data_ptr(), bvh_boxes.data_ptr(), n, tri.shape[0], tcl,
-            n_nodes, t_out.data_ptr(), i_out.data_ptr(), err.data_ptr(),
-            kernels.stream_ptr(tri.device))
+            bvh_axis.data_ptr(), bvh_boxes.data_ptr(), subleaf_rows.data_ptr(),
+            subleaf_boxes.data_ptr(), n, tri.shape[0], tcl, n_nodes, t_out.data_ptr(),
+            i_out.data_ptr(), err.data_ptr(), kernels.stream_ptr(tri.device))
     kernels.check(rc, "bvh_closest")
     _raise_on_flag("bvh_closest", err)
     return t_out, i_out
 
 
-def _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl, depth):
+def _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows,
+                   subleaf_boxes, tcl, depth):
     """K11 (``bvh_closest(count_iters=True)``): K1 with per-tile counts."""
     n = planes[0].shape[0]
     if n % COUNT_TILE:
         raise ValueError(f"bvh_closest(count_iters=True): N = {n} is not a multiple "
                          f"of the {COUNT_TILE}-ray count tile")
+    tabs = (tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows, subleaf_boxes)
     if tri.device.type == "cpu":
-        return plain_closest_counts(*planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl)
+        return plain_closest_counts(*planes, *tabs, tcl)
     n, n_nodes = _check_args("bvh_closest_count", planes, tri, bvh_child, bvh_axis,
                              bvh_boxes, tcl, depth)
     t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
@@ -149,9 +190,8 @@ def _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl, depth):
     err = torch.zeros(1, dtype=torch.int32, device=tri.device)
     fn = kernels.launcher("bvh_closest_count")
     kernels.LAUNCHES["bvh_closest_count"] += 1
-    rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), bvh_child.data_ptr(),
-            bvh_axis.data_ptr(), bvh_boxes.data_ptr(), n, tri.shape[0], tcl,
-            n_nodes, t_out.data_ptr(), i_out.data_ptr(), counts.data_ptr(),
+    rc = fn(*(p.data_ptr() for p in planes), *(t.data_ptr() for t in tabs), n, tri.shape[0],
+            tcl, n_nodes, t_out.data_ptr(), i_out.data_ptr(), counts.data_ptr(),
             err.data_ptr(), kernels.stream_ptr(tri.device))
     kernels.check(rc, "bvh_closest_count")
     _raise_on_flag("bvh_closest_count", err)
@@ -159,9 +199,12 @@ def _closest_count(planes, tri, bvh_child, bvh_axis, bvh_boxes, tcl, depth):
 
 
 def bvh_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-               tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16, depth: int = 1):
-    """Occlusion-only traversal; returns (N,) int32 (1 = occluded)."""
+               tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows, subleaf_boxes,
+               tcl: int = 16, depth: int = 1):
+    """Occlusion-only traversal; returns (N,) int32 (1 = occluded). The
+    sub-leaf table as for ``bvh_closest``."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
+    _check_baked_subleaf("bvh_anyhit", tri, subleaf_rows, subleaf_boxes, tcl)
     if tri.device.type == "cpu":
         return plain_anyhit(*planes, tri)
     n, n_nodes = _check_args("bvh_anyhit", planes, tri, bvh_child, bvh_axis,
@@ -171,8 +214,9 @@ def bvh_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
     fn = kernels.launcher("bvh_anyhit")
     kernels.LAUNCHES["bvh_anyhit"] += 1
     rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), bvh_child.data_ptr(),
-            bvh_axis.data_ptr(), bvh_boxes.data_ptr(), n, tri.shape[0], tcl,
-            n_nodes, occ.data_ptr(), err.data_ptr(), kernels.stream_ptr(tri.device))
+            bvh_axis.data_ptr(), bvh_boxes.data_ptr(), subleaf_rows.data_ptr(),
+            subleaf_boxes.data_ptr(), n, tri.shape[0], tcl, n_nodes, occ.data_ptr(),
+            err.data_ptr(), kernels.stream_ptr(tri.device))
     kernels.check(rc, "bvh_anyhit")
     _raise_on_flag("bvh_anyhit", err)
     return occ
@@ -204,29 +248,74 @@ def _slab(box, o, d, inv, tmin, tfar):
     return ~outside & (tn <= tf), tn
 
 
+def group_slab(box, o, d, inv, tmin, tfar):
+    """The kernels' slab test of a baked tree's sub-leaf group boxes
+    (csrc/bvh_traverse.cu group_slab), operation for operation: the entry
+    and exit distances of the axes with a nonzero direction component,
+    widened by the relative slack s = ``SUBLEAF_SLACK`` before their clamps
+    (tn * (1 - s) where tn >= 0, tn * (1 + s) below; the exit the other
+    way), then clamped by tmin and ``tfar``; an axis with a zero component
+    fails the box when the origin lies outside its span widened by s times
+    max(|tn|, |tf|) times the direction's largest component. Returns
+    (passes, tn)."""
+    t0, t1, zero = [], [], []
+    for k in range(3):
+        z = d[k] == 0.0
+        t0.append(torch.where(z, -torch.inf, (box[..., k] - o[k]) * inv[k]))
+        t1.append(torch.where(z, torch.inf, (box[..., k + 3] - o[k]) * inv[k]))
+        zero.append(z)
+    tn = torch.fmax(torch.fmax(torch.fmin(t0[0], t1[0]), torch.fmin(t0[1], t1[1])),
+                    torch.fmin(t0[2], t1[2]))
+    tf = torch.fmin(torch.fmin(torch.fmax(t0[0], t1[0]), torch.fmax(t0[1], t1[1])),
+                    torch.fmax(t0[2], t1[2]))
+    dmax = torch.fmax(torch.fmax(torch.abs(d[0]), torch.abs(d[1])), torch.abs(d[2]))
+    m = SUBLEAF_SLACK * torch.fmax(torch.abs(tn), torch.abs(tf)) * dmax
+    outside = torch.zeros(box.shape[:-1], dtype=torch.bool, device=box.device)
+    for k in range(3):
+        outside |= zero[k] & ((o[k] < box[..., k] - m) | (o[k] > box[..., k + 3] + m))
+    lo_s, hi_s = 1.0 - SUBLEAF_SLACK, 1.0 + SUBLEAF_SLACK
+    tn = torch.fmax(tn * torch.where(tn >= 0.0, lo_s, hi_s), tmin)
+    tf = torch.fmin(tf * torch.where(tf >= 0.0, hi_s, lo_s), tfar)
+    return ~outside & (tn <= tf), tn
+
+
+def _lowest(t, rows):
+    """Per lane the lowest (t, row) of (m, k) candidates: the least t, then
+    the least row among those at that t."""
+    tj = t.min(dim=1).values
+    rj = torch.where(t == tj[:, None], rows, torch.iinfo(torch.int32).max).min(dim=1).values
+    return tj, rj
+
+
 def tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-              tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16):
+              tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows, subleaf_boxes,
+              tcl: int = 16) -> dict:
     """K1's traversal in PyTorch, every ray walking its own stack, the rays
     stepping in lockstep: each step pops one entry of every ray whose
     stack is not empty. A step counts an inner entry (id >= 0) as a pop,
     pruned or not; drops the entry when its t exceeds the ray's best t;
-    tests a leaf's ``tcl`` rows with ``mt_hit_t``, keeping the lowest
-    (t, row); or slab-tests the node's 8 child boxes against
-    min(best t, tmax) and pushes those that pass far-to-near by the ray's
-    sign on the node's split axis. The stack holds ``STACK_SIZE`` (id,
-    entry t) pairs, as the kernels' does.
+    takes a leaf through its sub-leaf groups (``group_slab`` against
+    min(best t, tmax) at the leaf's entry, then the passing groups nearest
+    entry first, the lower group on equal entry, until the nearest left
+    starts beyond the best t, each group's rows through ``mt_hit_t``,
+    keeping the lowest (t, row)); or slab-tests the node's 8 child boxes
+    against min(best t, tmax) and pushes those that pass far-to-near by the
+    ray's sign on the node's split axis. The stack holds ``STACK_SIZE``
+    (id, entry t) pairs, as the kernels' does.
 
-    Returns (t, idx, pops, leaves, deepest): t and idx as K1's, the (N,)
-    int32 counts of each ray, and the deepest stack any ray reached. Raises
-    where the kernel would set its fault flag (stack overflow, visit cap)."""
+    Returns {"t", "idx"} as K1's, the (N,) int32 counts of each ray
+    {"pops", "leaves", "groups", "rows"} (groups entered, rows tested) and
+    "deepest", the deepest stack any ray reached. Raises where the kernel
+    would set its fault flag (stack overflow, visit cap)."""
     n = rox.shape[0]
     dev = rox.device
     n_nodes = bvh_axis.shape[0]
     t_rows = tri.shape[0]
+    gr = tcl // SUBLEAF_GROUPS
     tbest = torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev)
     ibest = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    pops = torch.zeros(n, dtype=torch.int32, device=dev)
-    leaves = torch.zeros(n, dtype=torch.int32, device=dev)
+    count = {k: torch.zeros(n, dtype=torch.int32, device=dev)
+             for k in ("pops", "leaves", "groups", "rows")}
     visits = torch.zeros(n, dtype=torch.int32, device=dev)
     stack = torch.zeros((n, STACK_SIZE), dtype=torch.int32, device=dev)
     stack_tn = torch.zeros((n, STACK_SIZE), dtype=torch.float32, device=dev)
@@ -236,9 +325,11 @@ def tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
     o = (rox, roy, roz)
     d = (rdx, rdy, rdz)
     inv = [_safe_inv(x) for x in d]
-    rows_of_leaf = torch.arange(tcl, device=dev)
     push = torch.arange(8, device=dev)
+    in_group = torch.arange(gr, device=dev)
     cols = [tri[:, k] for k in range(9)]
+    order = subleaf_rows.to(torch.int64)
+    group_boxes = subleaf_boxes.reshape(-1, SUBLEAF_GROUPS, 8)
     active = torch.nonzero(sp > 0).squeeze(1)
     while active.numel():
         sp[active] -= 1
@@ -249,23 +340,39 @@ def tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         if bool((visits[active] > n_nodes * 8 + 1).any()):
             raise RuntimeError("tree_walk: visit cap exceeded")
         inner = ids >= 0
-        pops[active] += inner.to(torch.int32)
+        count["pops"][active] += inner.to(torch.int32)
         kept = ~(tn_e > tbest[active])  # the kernel's prune test, negated
 
         leaf = ~inner & kept
         if bool(leaf.any()):
             lanes = active[leaf]
-            leaves[lanes] += 1
-            start = torch.clamp(-(ids[leaf] + 1), 0, t_rows - tcl)
-            rows = start[:, None] + rows_of_leaf[None, :]  # (L, tcl)
+            count["leaves"][lanes] += 1
+            start = torch.clamp(-(ids[leaf] + 1), 0, t_rows - tcl).to(torch.int64)
+            if bool((start % tcl != 0).any()):
+                raise RuntimeError("tree_walk: a leaf start off the leaf grid")
             ray = [a[lanes][:, None] for a in (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)]
-            t = mt_hit_t(*ray, [c[rows] for c in cols])
-            tj, j = torch.min(t, dim=1)  # rows ascend: the first minimum is the lowest row
-            row = torch.gather(rows, 1, j[:, None]).squeeze(1).to(torch.int32)
-            tb, ib = tbest[lanes], ibest[lanes]
-            better = (tj < MAX_DISTANCE) & ((tj < tb) | ((tj == tb) & (row < ib)))
-            tbest[lanes] = torch.where(better, tj, tb)
-            ibest[lanes] = torch.where(better, row, ib)
+            ok, gtn = group_slab(group_boxes[start // tcl], ray[0:3], ray[3:6],
+                                 [x[lanes][:, None] for x in inv], ray[6],
+                                 torch.fmin(tbest[lanes], tmax[lanes])[:, None])
+            todo = ok
+            for _ in range(SUBLEAF_GROUPS):
+                ts, gs = torch.min(torch.where(todo, gtn, torch.inf), dim=1)  # first minimum
+                go = todo.any(dim=1) & ~(ts > tbest[lanes])
+                todo = todo & go[:, None]
+                if not bool(go.any()):
+                    break
+                todo[go, gs[go]] = False
+                g_lanes = lanes[go]
+                count["groups"][g_lanes] += 1
+                count["rows"][g_lanes] += gr
+                slot = start[go, None] + gs[go, None] * gr + in_group[None, :]  # (m, gr)
+                rows = start[go, None] + order[slot]
+                t = mt_hit_t(*[x[go] for x in ray], [c[rows] for c in cols])
+                tj, rj = _lowest(t, rows.to(torch.int32))
+                tb, ib = tbest[g_lanes], ibest[g_lanes]
+                better = (tj < MAX_DISTANCE) & ((tj < tb) | ((tj == tb) & (rj < ib)))
+                tbest[g_lanes] = torch.where(better, tj, tb)
+                ibest[g_lanes] = torch.where(better, rj, ib)
 
         node = inner & kept
         if bool(node.any()):
@@ -291,17 +398,18 @@ def tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
             sp[lanes] += ok.sum(dim=1)
             deepest = max(deepest, int(sp[lanes].max()))
         active = active[sp[active] > 0]
-    return tbest, ibest, pops, leaves, deepest
+    return {"t": tbest, "idx": ibest, **count, "deepest": deepest}
 
 
 def plain_closest_counts(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-                         tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = 16):
+                         tri, bvh_child, bvh_axis, bvh_boxes, subleaf_rows, subleaf_boxes,
+                         tcl: int = 16):
     """Plain version of K11: ``tree_walk``'s (t, idx) and its counts summed
     over each tile of 1024 rays, (N / 1024, 2) int32 [pops, leaves]."""
-    t, idx, pops, leaves, _ = tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri,
-                                        bvh_child, bvh_axis, bvh_boxes, tcl)
-    per_ray = torch.stack([pops, leaves], 1).to(torch.int64)
-    return t, idx, per_ray.reshape(-1, COUNT_TILE, 2).sum(dim=1).to(torch.int32)
+    w = tree_walk(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, bvh_child, bvh_axis,
+                  bvh_boxes, subleaf_rows, subleaf_boxes, tcl)
+    per_ray = torch.stack([w["pops"], w["leaves"]], 1).to(torch.int64)
+    return w["t"], w["idx"], per_ray.reshape(-1, COUNT_TILE, 2).sum(dim=1).to(torch.int32)
 
 
 def leaf_scan_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, leaf_start,
@@ -378,9 +486,45 @@ def plain_anyhit_inst(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, leaf_start,
     return (idx >= 0).to(torch.int32)
 
 
-SUBLEAF_GROUPS = 8        # object-space group boxes per unique leaf (K7/K8)
+SUBLEAF_GROUPS = 8        # group boxes a leaf: baked (K1/K2/K11) and unique (K7/K8)
 SUBLEAF_PAD = 2.0 ** -13  # a group box's outward margin over its largest |coordinate|
+SCENE_PAD = 2.0 ** -19    # and, on a baked tree, over the table's largest |coordinate|
+SUBLEAF_SLACK = 2.0 ** -13  # relative slack of a baked group's slab test (group_slab)
 _NEVER = 1e30             # the never-box of accel/bvh.py: a point at 1e30
+
+
+def _live_rows(p):
+    """Rows whose e1 and e2 are both nonzero; the others (the flatten's
+    padding, hidden rows) have det exactly 0 and never pass
+    Moller-Trumbore."""
+    return (p[:, 3:6] != 0).any(1) & (p[:, 6:9] != 0).any(1)
+
+
+def _group_boxes(verts, live, gr: int, extra_pad: float, device):
+    """(G, 8) float32 boxes [lox loy loz hix hiy hiz 0 0] over the vertices
+    (G * gr, 3, 3) float64 of live rows, ``gr`` consecutive rows a group,
+    widened on every axis by ``SUBLEAF_PAD`` times the box's largest
+    |coordinate| plus ``extra_pad`` and rounded outward to float32; a
+    group without a live row gets the never-box."""
+    lo = torch.where(live[:, None], verts.amin(1), torch.inf).reshape(-1, gr, 3).amin(1)
+    hi = torch.where(live[:, None], verts.amax(1), -torch.inf).reshape(-1, gr, 3).amax(1)
+    some = live.reshape(-1, gr).any(1)[:, None]
+    pad = SUBLEAF_PAD * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True) + extra_pad
+    lo, hi = lo - pad, hi + pad
+    lo32, hi32 = lo.to(torch.float32), hi.to(torch.float32)
+    inf = torch.full_like(lo32, torch.inf)
+    lo32 = torch.where(lo32.to(torch.float64) > lo, torch.nextafter(lo32, -inf), lo32)
+    hi32 = torch.where(hi32.to(torch.float64) < hi, torch.nextafter(hi32, inf), hi32)
+    boxes = torch.zeros((lo.shape[0], 8), dtype=torch.float32, device=device)
+    boxes[:, 0:3] = torch.where(some, lo32, _NEVER)
+    boxes[:, 3:6] = torch.where(some, hi32, _NEVER)
+    return boxes
+
+
+def _vertices(p):
+    """(T, 3 vertices, 3) float64: p0, p0 + e1, p0 + e2 of (T, >= 9) rows."""
+    p0, e1, e2 = p[:, 0:3], p[:, 3:6], p[:, 6:9]
+    return torch.stack([p0, p0 + e1, p0 + e2], 1)
 
 
 def make_subleaf_boxes(packed, tcl: int):
@@ -407,23 +551,120 @@ def make_subleaf_boxes(packed, tcl: int):
     if tcl % SUBLEAF_GROUPS or t_rows % tcl:
         raise ValueError(f"make_subleaf_boxes: {t_rows} rows in leaves of {tcl} do not "
                          f"split into {SUBLEAF_GROUPS} groups a leaf")
+    p = packed[:, 0:9].to(torch.float64)
+    return _group_boxes(_vertices(p), _live_rows(p), tcl // SUBLEAF_GROUPS, 0.0,
+                        packed.device)
+
+
+def _split_segments(seg, cnt, cen):
+    """One level of the sub-leaf split: each segment (L, S, C) of row
+    indices, whose first ``cnt`` (L, S) entries are live rows and the rest
+    dead ones, is sorted by the live rows' centroids along their widest
+    axis (stable; dead rows last, in their order) and cut into two
+    segments of C / 2: the left takes the first min(C / 2, ceil(cnt / 2))
+    live rows, the right the rest, each filled up with dead rows."""
+    c_len = seg.shape[2]
+    half = c_len // 2
+    c = cen[seg]                                                   # (L, S, C, 3)
+    slot_live = torch.arange(c_len, device=seg.device) < cnt[..., None]
+    hi = torch.where(slot_live[..., None], c, -torch.inf).amax(2)
+    lo = torch.where(slot_live[..., None], c, torch.inf).amin(2)
+    ext = torch.where(cnt[..., None] > 0, hi - lo, 0.0)
+    ax = torch.argmax(ext, dim=-1)                                 # first widest axis
+    key = c.gather(3, ax[..., None, None].expand(*seg.shape, 1)).squeeze(3)
+    key = torch.where(slot_live, key, torch.inf)
+    seg = seg.gather(2, torch.sort(key, dim=2, stable=True).indices)
+    nl = torch.clamp((cnt + 1) // 2, max=half)
+    j = torch.arange(half, device=seg.device)
+    left = torch.where(j < nl[..., None], j, cnt[..., None] + j - nl[..., None])
+    right = torch.where(j < (cnt - nl)[..., None], nl[..., None] + j, half + j)
+    seg = torch.stack([seg.gather(2, left), seg.gather(2, right)], 2)
+    return seg.reshape(seg.shape[0], -1, half), torch.stack([nl, cnt - nl], 2).reshape(
+        cnt.shape[0], -1)
+
+
+def make_baked_subleaf(packed, tcl: int):
+    """The sub-leaf table of a baked tree (the port's own, not the
+    reference's) on ``packed``'s device: (rows, boxes).
+
+    ``rows`` (T,) uint8: the leaf-local order of each leaf's rows. Leaf l
+    (rows [l * tcl, (l + 1) * tcl), a tree leaf of accel/bvh.py) splits its
+    live rows (``_live_rows``; the others go last) into
+    ``SUBLEAF_GROUPS`` (8) groups by three levels of median splits
+    (``_split_segments``) on the centroids
+    p0 + (e1 + e2) / 3 (taken as 3 p0 + e1 + e2 in float64) along the
+    widest axis of the segment's live centroids; with G = ``SUBLEAF_GROUPS``
+    group g of leaf l is rows l * tcl + rows[l * tcl + g * tcl / G + j],
+    j < tcl / G.
+
+    ``boxes`` (T / tcl * G, 8) float32, ``bvh_boxes``' layout: group g's
+    world box over its live rows' vertices (``baked_subleaf_boxes``).
+    Needs tcl a multiple of G up to 256."""
+    t_rows = packed.shape[0]
+    if tcl % SUBLEAF_GROUPS or t_rows % tcl or not 0 < tcl <= 256:
+        raise ValueError(f"make_baked_subleaf: {t_rows} rows in leaves of {tcl} do not "
+                         f"split into {SUBLEAF_GROUPS} groups a leaf of at most 256 rows")
+    p = packed[:, 0:9].to(torch.float64)
+    live = _live_rows(p)
+    cen = 3.0 * p[:, 0:3] + p[:, 3:6] + p[:, 6:9]
+    n_leaves = t_rows // tcl
+    base = torch.arange(n_leaves, device=packed.device)[:, None] * tcl
+    # live rows first, in row order, then the dead ones
+    first = torch.sort((~live).reshape(n_leaves, tcl).to(torch.int8), dim=1,
+                       stable=True).indices
+    seg = (base + first)[:, None, :]
+    cnt = live.reshape(n_leaves, 1, tcl).sum(2)
+    for _ in range(SUBLEAF_GROUPS.bit_length() - 1):
+        seg, cnt = _split_segments(seg, cnt, cen)
+    rows = (seg.reshape(n_leaves, tcl) - base).reshape(-1).to(torch.uint8)
+    return rows, baked_subleaf_boxes(packed, rows, tcl)
+
+
+def baked_subleaf_boxes(packed, rows, tcl: int):
+    """The group boxes of ``make_baked_subleaf`` for the leaf-local order
+    ``rows``, from the rows of ``packed`` as they are now (the baked refit
+    keeps the order and rebuilds the boxes from the moved rows). Each box
+    bounds its live rows' vertices in float64, is widened on every axis by
+    ``SUBLEAF_PAD`` times its largest |coordinate| plus ``SCENE_PAD`` times
+    the largest |coordinate| of the table's live vertices, and is rounded
+    outward to float32; a group without a live row gets the never-box.
+
+    Soundness: a hit that Moller-Trumbore accepts must lie in a group whose
+    box the ray enters (``group_slab``) no later than the hit. A slab t of
+    a box coordinate c rounds by ~3 ulp relative (~2e-7 |c - o| in space),
+    and Moller-Trumbore's own rounding can put an accepted hit outside its
+    triangle by a few ulp of |o - p0| / sin(angle). Both scale with the
+    distance from the origin: the slack of ``group_slab`` (2^-13, ~2,000
+    ulp, on t, and on the span of an axis with a zero direction component
+    relative to the distance along the ray) covers them from any distance;
+    the spatial margin (2^-19 of the scene's extent, 2^-13 of the box's
+    own) covers rays nearly parallel to a box face (whose t on that axis is
+    huge) for origins within the scene's extent of the box.
+    ``tests/test_torch_bvh_subleaf.py`` holds it on far origins, groups
+    near the origin, face rays and zero-direction rays."""
     gr = tcl // SUBLEAF_GROUPS
     p = packed[:, 0:9].to(torch.float64)
-    p0, e1, e2 = p[:, 0:3], p[:, 3:6], p[:, 6:9]
-    verts = torch.stack([p0, p0 + e1, p0 + e2], 1)  # (T, 3 vertices, 3)
-    live = (e1 != 0).any(1) & (e2 != 0).any(1)
-    lo = torch.where(live[:, None], verts.amin(1), torch.inf).reshape(-1, gr, 3).amin(1)
-    hi = torch.where(live[:, None], verts.amax(1), -torch.inf).reshape(-1, gr, 3).amax(1)
-    some = live.reshape(-1, gr).any(1)[:, None]
-    pad = SUBLEAF_PAD * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True)
-    lo, hi = lo - pad, hi + pad
-    lo32, hi32 = lo.to(torch.float32), hi.to(torch.float32)
-    lo32 = torch.where(lo32.to(torch.float64) > lo, torch.nextafter(lo32, lo32 - 1.0), lo32)
-    hi32 = torch.where(hi32.to(torch.float64) < hi, torch.nextafter(hi32, hi32 + 1.0), hi32)
-    boxes = torch.zeros((lo.shape[0], 8), dtype=torch.float32, device=packed.device)
-    boxes[:, 0:3] = torch.where(some, lo32, _NEVER)
-    boxes[:, 3:6] = torch.where(some, hi32, _NEVER)
-    return boxes
+    live = _live_rows(p)
+    verts = _vertices(p)
+    extent = float(torch.where(live[:, None, None], verts.abs(), 0.0).max()) if len(p) else 0.0
+    base = torch.arange(p.shape[0], device=p.device) // tcl * tcl
+    grouped = base + rows.to(torch.int64)  # table row of each slot, in group order
+    return _group_boxes(verts[grouped], live[grouped], gr, SCENE_PAD * extent, packed.device)
+
+
+def subleaf_table(packed, tcl: int, bvh_nodes: int, instanced: bool):
+    """``TriSoup``'s (subleaf_rows, subleaf_boxes) for a flattened table:
+    on instanced tables a (1,) placeholder and ``make_subleaf_boxes``; on a
+    baked tree ``make_baked_subleaf`` (leaf sizes beyond its reach keep
+    placeholders, on which the kernels' wrappers raise); without a tree
+    (the chunk sweep) placeholders."""
+    dev = packed.device
+    none_rows = torch.zeros(1, dtype=torch.uint8, device=dev)
+    if instanced:
+        return none_rows, make_subleaf_boxes(packed, tcl)
+    if bvh_nodes > 0 and tcl % SUBLEAF_GROUPS == 0 and 0 < tcl <= 256:
+        return make_baked_subleaf(packed, tcl)
+    return none_rows, torch.zeros((1, 8), dtype=torch.float32, device=dev)
 
 
 def _check_subleaf(name, tri, subleaf_boxes, tcl):

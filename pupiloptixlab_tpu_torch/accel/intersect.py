@@ -111,11 +111,17 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
             torch.where(hit, inst, 0),
         )
     if config.bvh_nodes > 0:
-        closest = bvh_closest_mt if uses_mt(tris, config) else bvh_closest
-        t, idx = closest(
-            *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
-            tcl=config.bvh_tcl, depth=tris.bvh_depth,
-        )
+        if uses_mt(tris, config):
+            t, idx = bvh_closest_mt(
+                *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
+                tcl=config.bvh_tcl, depth=tris.bvh_depth,
+            )
+        else:
+            t, idx = bvh_closest(
+                *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
+                tris.subleaf_rows, tris.subleaf_boxes, tcl=config.bvh_tcl,
+                depth=tris.bvh_depth,
+            )
     else:
         t, idx = sweep_closest(*planes, tris.packed, tris.chunk_boxes,
                                tris.super_boxes)
@@ -292,7 +298,8 @@ def intersect_any(
         elif config.bvh_nodes > 0:
             occ = bvh_anyhit(
                 *planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
-                tcl=config.bvh_tcl, depth=tris.bvh_depth,
+                tris.subleaf_rows, tris.subleaf_boxes, tcl=config.bvh_tcl,
+                depth=tris.bvh_depth,
             )
         else:
             occ = sweep_anyhit(*planes, tris.packed, tris.chunk_boxes,

@@ -14,6 +14,8 @@
 //   launch_bvh_closest_count <- _make_closest_kernel(count_iters=True)
 //                              (pallas_bvh.py:514-590), via
 //                              bvh_closest(count_iters=True)
+//   launch_bvh_closest_visits   K1 with four counts a tile, for measurement
+//                              only (no wrapper, no path launches it)
 //
 // What it computes: per ray, over the 8-wide BVH of accel/bvh.py (child ids
 // with leaves encoded as -(id+1), one split axis per node, 8 child boxes of
@@ -29,6 +31,36 @@
 //       pruned leaf entry is not tested and not counted). A lane with an
 //       empty interval counts 0. The root is the first inner pop.
 // Baked tables: a leaf id is -(row+1), the leaf's first row.
+//
+// K1/K2/K11's sub-leaf level (baked trees). A baked leaf holds tcl rows in
+// the tree build's argpartition order, in no spatial order, and K1 used to
+// test all of them at every leaf it visited (big_env: 55-75 rows a ray
+// for at most one hit). The port's own table subleaf (accel/bvh_traverse.py
+// make_baked_subleaf; not the reference's) holds a leaf-local order of the
+// rows, one byte a row, that splits each leaf's live rows into
+// kGroups = 8 spatial groups (three levels of median splits along the
+// widest centroid axis), and one world box a group, padded (2^-13 of the
+// box's largest coordinate plus 2^-19 of the table's) and tested with a
+// relative slack (group_slab) so that rounding never drops a group holding
+// a row Moller-Trumbore accepts. At a leaf the 8 boxes and the order bytes
+// are loaded together and slab-tested against min(best t, tmax); K1 and
+// K11 take the groups nearest entry first (the lower group on equal entry)
+// and stop once the nearest group left starts strictly beyond the best t;
+// K2 takes them in table order and stops at its first hit. A group's rows
+// are tested together (tcl / 8 of them, a compile-time count: the kernels
+// are instantiated for tcl 16, 32, 64 and 128, and the launchers refuse
+// any other), up to 4 rows' loads issued before the first test. The
+// tree, the pops and leaves K11 counts and the results are unchanged:
+// ties compare (t, row) outright, so the order in which rows are tested
+// does not matter; an all-pass table (every box +-1e30, the
+// rows in table order) makes the kernels the full leaf scan again, which
+// chip_smoke.py holds them against at full N.
+//
+// Inner nodes of the baked forms: the node's 16 box loads and its 8 child
+// ids are issued before its first slab test, so they are in flight
+// together (the former loop, which the instanced and linear forms keep,
+// tests and pushes child by child, each load behind the previous child's
+// branches); the push order and the prune rule are the former ones.
 // Instanced tables (flatten/instanced.py): the tree is a world tree over
 // per-instance leaf boxes built at one leaf per slot, and a leaf id -(li+1)
 // indexes leaf_start / leaf_inst; the triangle table holds unique
@@ -122,16 +154,18 @@
 // clamped by the running best t, and the leaf test is _mt_planes with IEEE
 // 1/det under -fmad=false (the instance transform too), so t is
 // bit-identical to the plain PyTorch versions. Ties at equal t keep the
-// lowest row (K1), or the lowest world leaf and then the lowest row (K7: the
-// rule of the reference's plain leaf scan, intersect.py:447-505, compared
-// outright, since K7 visits a leaf's groups in no fixed order), which makes
-// the result independent of visit order. Entries are pruned only when their
+// lowest row (K1, K11), or the lowest world leaf and then the lowest row
+// (K7: the rule of the reference's plain leaf scan, intersect.py:447-505),
+// compared outright, since the groups of a leaf come in no fixed order,
+// which makes the result independent of visit order. Entries are pruned only when their
 // box starts strictly beyond the best t, so a tied leaf is still visited.
 // Hidden instances carry a zero matrix: their object-space direction is 0,
 // so det = 0 fails |det| >= 1e-12 (no NaN). Empty child slots carry child id
 // 0 with a never-hit point box at 1e30; id 0 is never pushed as a child, and
 // a visit cap (every slot of the tree once) sets an error flag that the
 // wrapper raises on.
+
+#include <type_traits>
 
 #include "ray_tests.cuh"
 
@@ -143,11 +177,15 @@ constexpr int kStack = 128;
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;  // rays per K11 count tile
 
-enum : int { kErrVisitCap = 1, kErrStack = 2 };
+enum : int { kErrVisitCap = 1, kErrStack = 2, kErrLeafGrid = 4 };
 
-constexpr int kGroups = 8;  // sub-leaf groups of a unique leaf (K7/K8)
+constexpr int kGroups = 8;  // sub-leaf groups of a leaf (baked and unique leaves)
 
-enum : int { kErrLeafGrid = 4 };  // a world leaf's start off the tcl grid
+// The relative slack s of a baked group box's slab test (2^-13; the plain
+// mirror is accel/bvh_traverse.py group_slab).
+constexpr float kSlack = 1.0f / 8192.0f;
+constexpr float kSlackLo = 1.0f - kSlack;
+constexpr float kSlackHi = 1.0f + kSlack;
 
 // Leaf tables of an instanced scene (unused by the baked form).
 struct InstTables {
@@ -162,6 +200,12 @@ struct InstTables {
 struct LinearTable {
   const float4* rows;   // (T, 40) as 10 float4 per row
   const float* center;  // (3,) recentring point
+};
+
+// The sub-leaf table of a baked tree (K1, K2, K11; unused by the others).
+struct SubTable {
+  const uint8_t* order;  // (T,) leaf-local row of each slot, group-major
+  const float4* boxes;   // (T / tcl * kGroups, 8) world group boxes
 };
 
 // The linear-form test of one row: the four dots summed left to right over
@@ -238,7 +282,150 @@ __device__ __forceinline__ int inst_start(int li, const InstTables& it, int t_ro
   return s;
 }
 
-template <bool kInst, bool kLinear, bool kCount>
+// The 8 child boxes of node id, all 16 loads issued before any test, then
+// slab-tested against tfar: the mask of the children that pass, and their
+// entry t. The 8 child ids come in two 16-byte loads beside them.
+__device__ __forceinline__ unsigned test_children(const float4* __restrict__ boxes,
+                                                  const int* __restrict__ child, int id,
+                                                  const Ray& r, float tfar, float (&tn)[8],
+                                                  int (&ch)[8]) {
+  const float4* nb = boxes + (size_t)id * 16;
+  float4 b[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) b[q] = __ldg(nb + q);
+  const int4* nc = reinterpret_cast<const int4*>(child + (size_t)id * 8);
+  const int4 c0 = __ldg(nc), c1 = __ldg(nc + 1);
+  ch[0] = c0.x; ch[1] = c0.y; ch[2] = c0.z; ch[3] = c0.w;
+  ch[4] = c1.x; ch[5] = c1.y; ch[6] = c1.z; ch[7] = c1.w;
+  unsigned ok = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    ok |= (unsigned)slab_box(b[2 * k], b[2 * k + 1], r, tfar, &tn[k]) << k;
+  }
+  return ok;
+}
+
+// The slab test of a baked group box. The entry and exit t of the axes
+// with a nonzero direction component are widened by the relative slack s
+// before their clamps (tn * (1 - s) where tn >= 0, tn * (1 + s) below; tf
+// the other way). An axis with a zero component bounds nothing, and the
+// box fails when the origin lies outside its span widened by s times the
+// distance the other axes give (max(|tn|, |tf|) times the direction's
+// largest component): Moller-Trumbore's rounding grows with the origin's
+// distance, on that axis as on the others. A point box at 1e30 (the
+// never-box) still fails: its entry t exceeds every tmax.
+__device__ __forceinline__ bool group_slab(const float4 lo, const float4 hi, const Ray& r,
+                                           float tfar, float* tn_out) {
+  float tx0 = (lo.x - r.ox) * r.ix;
+  float ty0 = (lo.y - r.oy) * r.iy;
+  float tz0 = (lo.z - r.oz) * r.iz;
+  float tx1 = (lo.w - r.ox) * r.ix;
+  float ty1 = (hi.x - r.oy) * r.iy;
+  float tz1 = (hi.y - r.oz) * r.iz;
+  if (r.axis0) {
+    if (r.dx == 0.0f) { tx0 = -CUDART_INF_F; tx1 = CUDART_INF_F; }
+    if (r.dy == 0.0f) { ty0 = -CUDART_INF_F; ty1 = CUDART_INF_F; }
+    if (r.dz == 0.0f) { tz0 = -CUDART_INF_F; tz1 = CUDART_INF_F; }
+  }
+  float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  bool outside = false;
+  if (r.axis0) {
+    const float dmax = fmaxf(fmaxf(fabsf(r.dx), fabsf(r.dy)), fabsf(r.dz));
+    const float m = kSlack * fmaxf(fabsf(tn), fabsf(tf)) * dmax;
+    outside = (r.dx == 0.0f && (r.ox < lo.x - m || r.ox > lo.w + m)) ||
+              (r.dy == 0.0f && (r.oy < lo.y - m || r.oy > hi.x + m)) ||
+              (r.dz == 0.0f && (r.oz < lo.z - m || r.oz > hi.y + m));
+  }
+  tn = fmaxf(tn * (tn >= 0.0f ? kSlackLo : kSlackHi), r.tmn);
+  tf = fminf(tf * (tf >= 0.0f ? kSlackHi : kSlackLo), tfar);
+  *tn_out = tn;
+  return !outside && tn <= tf;
+}
+
+// A baked leaf's sub-leaf data: its kTcl order bytes as kTcl / 4 words
+// (16-byte loads) and its group boxes slab-tested against tfar, all loads
+// issued before the first test; returns the mask of the groups that pass
+// and their entry t.
+template <int kTcl>
+__device__ __forceinline__ unsigned leaf_groups(const SubTable& sub, int s, const Ray& r,
+                                                float tfar, uint32_t (&ow)[kTcl / 4],
+                                                float (&gtn)[kGroups]) {
+  const uint4* ord = reinterpret_cast<const uint4*>(sub.order + s);
+#pragma unroll
+  for (int q = 0; q < kTcl / 16; ++q) {
+    const uint4 v = __ldg(ord + q);
+    ow[4 * q] = v.x; ow[4 * q + 1] = v.y; ow[4 * q + 2] = v.z; ow[4 * q + 3] = v.w;
+  }
+  const float4* gb = sub.boxes + (size_t)(s / kTcl) * (2 * kGroups);
+  float4 b[2 * kGroups];
+#pragma unroll
+  for (int q = 0; q < 2 * kGroups; ++q) b[q] = __ldg(gb + q);
+  unsigned ok = 0;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    ok |= (unsigned)group_slab(b[2 * g], b[2 * g + 1], r, tfar, &gtn[g]) << g;
+  }
+  return ok;
+}
+
+// Word q of a register array, q known only at run time, by selects (an
+// indexed register array would go to local memory).
+template <int kW>
+__device__ __forceinline__ uint32_t pick_word(const uint32_t (&w)[kW], int q) {
+  uint32_t x = w[0];
+#pragma unroll
+  for (int k = 1; k < kW; ++k) x = q == k ? w[k] : x;
+  return x;
+}
+
+// Moller-Trumbore on the kGr rows of one group, up to 4 rows' loads issued
+// before their first test (each test's IEEE division branches, which would
+// otherwise hold the next row's loads behind it).
+template <int kGr>
+__device__ __forceinline__ void test_rows(const float4* __restrict__ tri, const int (&rw)[kGr],
+                                          const Ray& r, float (&t)[kGr], bool (&hit)[kGr]) {
+  constexpr int kB = kGr < 4 ? kGr : 4;
+#pragma unroll
+  for (int j0 = 0; j0 < kGr; j0 += kB) {
+    float4 q[3 * kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const float4* row = tri + (size_t)rw[j0 + j] * 3;
+      q[3 * j] = __ldg(row);
+      q[3 * j + 1] = __ldg(row + 1);
+      q[3 * j + 2] = __ldg(row + 2);
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      hit[j0 + j] = moller_trumbore_row(q[3 * j], q[3 * j + 1], q[3 * j + 2], r, &t[j0 + j]);
+    }
+  }
+}
+
+// The table rows of group g of the leaf at row s: s + its order bytes.
+template <int kTcl>
+__device__ __forceinline__ void group_rows(const uint32_t (&ow)[kTcl / 4], int g, int s,
+                                           int (&rows)[kTcl / kGroups]) {
+  constexpr int kGr = kTcl / kGroups;
+  if constexpr (kGr == 2) {
+    const uint32_t x = pick_word<kTcl / 4>(ow, g >> 1) >> ((g & 1) * 16);
+    rows[0] = s + (int)(x & 0xffu);
+    rows[1] = s + (int)((x >> 8) & 0xffu);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kGr / 4; ++q) {
+      const uint32_t x = pick_word<kTcl / 4>(ow, g * (kGr / 4) + q);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) rows[4 * q + b] = s + (int)((x >> (8 * b)) & 0xffu);
+    }
+  }
+}
+
+// kCount: 0 none; 2 K11's [pops, leaves]; 4 also [groups entered, rows
+// tested] (the measurement launchers). kTcl: the baked form's leaf size
+// (0 for the instanced and linear forms, which take tcl at run time).
+template <bool kInst, bool kLinear, int kCount, int kTcl>
 __global__ void __launch_bounds__(kThreads)
 bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -246,13 +433,13 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ tmin, const float* __restrict__ tmax,
                    const float4* __restrict__ tri, const int* __restrict__ child,
                    const int* __restrict__ axis, const float4* __restrict__ boxes,
-                   const InstTables it, const LinearTable lt, int n, int t_rows,
-                   int tcl, int n_nodes, float* __restrict__ t_out,
+                   const InstTables it, const LinearTable lt, const SubTable sub, int n,
+                   int t_rows, int tcl, int n_nodes, float* __restrict__ t_out,
                    int* __restrict__ i_out, int* __restrict__ l_out,
                    int* __restrict__ counts, int* __restrict__ err) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  // K11 runs n / kThreads full blocks (the wrapper requires n % kTile == 0),
-  // so no thread of a counting launch leaves before its block's reduction
+  // a counting launch runs n / kThreads full blocks (the launchers require
+  // n % kTile == 0), so no thread leaves before its block's reduction
   if (i >= n) return;
   const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
   float f[10];  // K10: the ray's features [d, (o-c) x d, o-c, 1]
@@ -269,7 +456,7 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   float tbest = kMaxDistance;
   int ibest = -1;
   int lbest = -1;  // world leaf of the best hit (instanced form)
-  // K11's counts of this ray (and, instanced, the groups and rows tested)
+  // the counts of this ray: pops, leaves, groups entered, rows tested
   int pops = 0, leaves = 0, groups = 0, rows = 0;
   if (r.tmx > r.tmn) {  // culled lanes (empty interval) return at once
     int stack[kStack];
@@ -285,12 +472,12 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       if (--visits < 0) { atomicOr(err, kErrVisitCap); break; }
       --sp;
       const int id = stack[sp];
-      if constexpr (kCount) pops += id >= 0;
+      if constexpr (kCount > 0) pops += id >= 0;
       // entries whose box starts beyond the best hit cannot improve it
       // (ties stay: the slab test's tn <= tf is inclusive too)
       if (stack_tn[sp] > tbest) continue;
       if (id < 0) {
-        if constexpr (kCount) ++leaves;
+        if constexpr (kCount > 0) ++leaves;
         if constexpr (kInst) {
           const int li = world_leaf(id, it);
           const int s = inst_start(li, it, t_rows, tcl, err);
@@ -323,7 +510,7 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
             // every group left starts beyond the best hit (a tie is tested)
             if (gs < 0 || ts > tbest) break;
             todo &= ~(1u << gs);
-            if constexpr (kCount) { ++groups; rows += gr; }
+            if constexpr (kCount == 4) { ++groups; rows += gr; }
             const int r0 = s + gs * gr;
             for (int j = 0; j < gr; ++j) {
               float t;
@@ -350,14 +537,40 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
             }
           }
         } else {
-          const int s = baked_start(id, t_rows, tcl);
-          for (int j = 0; j < tcl; ++j) {
-            float t;
-            const int row = s + j;
-            if (moller_trumbore(tri + (size_t)row * 3, r, &t) &&
-                (t < tbest || (t == tbest && row < ibest))) {
-              tbest = t;
-              ibest = row;
+          // the leaf's spatial groups, nearest entry first (the lower group
+          // on equal entry), against min(best t, tmax) at the leaf's entry
+          constexpr int kGr = kTcl / kGroups;
+          const int s = baked_start(id, t_rows, kTcl);
+          if (s % kTcl) atomicOr(err, kErrLeafGrid);
+          uint32_t ow[kTcl / 4];
+          float gtn[kGroups];
+          unsigned todo = leaf_groups<kTcl>(sub, s, r, fminf(tbest, r.tmx), ow, gtn);
+          while (todo) {
+            int gs = -1;
+            float ts = CUDART_INF_F;
+#pragma unroll
+            for (int g = 0; g < kGroups; ++g) {
+              if (((todo >> g) & 1u) && gtn[g] < ts) {
+                ts = gtn[g];
+                gs = g;
+              }
+            }
+            // every group left starts beyond the best hit (a tie is tested)
+            if (gs < 0 || ts > tbest) break;
+            todo &= ~(1u << gs);
+            if constexpr (kCount == 4) { ++groups; rows += kGr; }
+            int rw[kGr];
+            group_rows<kTcl>(ow, gs, s, rw);
+            float t[kGr];
+            bool hit[kGr];
+            test_rows<kGr>(tri, rw, r, t, hit);
+            // rows come in any order: ties compare (t, row) outright
+#pragma unroll
+            for (int j = 0; j < kGr; ++j) {
+              if (hit[j] && (t[j] < tbest || (t[j] == tbest && rw[j] < ibest))) {
+                tbest = t[j];
+                ibest = rw[j];
+              }
             }
           }
         }
@@ -365,37 +578,56 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       }
       const int ax = __ldg(axis + id);
       const float d = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
-      const bool fwd = d >= 0.0f;
       const float tfar = fminf(tbest, r.tmx);
-      for (int k = 0; k < 8; ++k) {
-        // children ascend along the axis: push far first so near pops first
-        const int kk = fwd ? 7 - k : k;
-        float tn;
-        if (!slab(boxes + (size_t)(id * 8 + kk) * 2, r, tfar, &tn)) continue;
-        if (sp >= kStack) { atomicOr(err, kErrStack); sp = 0; break; }
-        stack[sp] = __ldg(child + id * 8 + kk);
-        stack_tn[sp] = tn;
-        ++sp;
+      // children ascend along the axis: push far first so near pops first
+      if constexpr (kTcl > 0) {
+        float tn[8];
+        int ch[8];
+        const unsigned ok = test_children(boxes, child, id, r, tfar, tn, ch);
+        if (sp + __popc(ok) > kStack) { atomicOr(err, kErrStack); break; }
+        if (d >= 0.0f) {
+#pragma unroll
+          for (int k = 7; k >= 0; --k) {
+            if ((ok >> k) & 1u) { stack[sp] = ch[k]; stack_tn[sp] = tn[k]; ++sp; }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            if ((ok >> k) & 1u) { stack[sp] = ch[k]; stack_tn[sp] = tn[k]; ++sp; }
+          }
+        }
+      } else {
+        // the instanced and linear forms test and push child by child (their
+        // walk holds more registers: the batched loads cost K7 4-10%)
+        const bool fwd = d >= 0.0f;
+        for (int k = 0; k < 8; ++k) {
+          const int kk = fwd ? 7 - k : k;
+          float tn;
+          if (!slab(boxes + (size_t)(id * 8 + kk) * 2, r, tfar, &tn)) continue;
+          if (sp >= kStack) { atomicOr(err, kErrStack); sp = 0; break; }
+          stack[sp] = __ldg(child + id * 8 + kk);
+          stack_tn[sp] = tn;
+          ++sp;
+        }
       }
     }
   }
   t_out[i] = tbest;
   i_out[i] = ibest;
   if constexpr (kInst) l_out[i] = lbest;
-  if constexpr (kCount) {
-    constexpr int kNC = kInst ? 4 : 2;  // [pops, leaves] (+ [groups, rows])
+  if constexpr (kCount > 0) {
     const int mine[4] = {pops, leaves, groups, rows};
-    __shared__ int part[kNC][kThreads / 32];
+    __shared__ int part[kCount][kThreads / 32];
 #pragma unroll
-    for (int c = 0; c < kNC; ++c) {
+    for (int c = 0; c < kCount; ++c) {
       const int w = __reduce_add_sync(0xffffffffu, mine[c]);
       if ((threadIdx.x & 31) == 0) part[c][threadIdx.x >> 5] = w;
     }
     __syncthreads();
     if (threadIdx.x == 0) {
-      int* slot = counts + (size_t)(i / kTile) * kNC;
+      int* slot = counts + (size_t)(i / kTile) * kCount;
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) {
+      for (int c = 0; c < kCount; ++c) {
         int b = 0;
 #pragma unroll
         for (int w = 0; w < kThreads / 32; ++w) b += part[c][w];
@@ -405,7 +637,7 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   }
 }
 
-template <bool kInst>
+template <bool kInst, int kTcl>
 __global__ void __launch_bounds__(kThreads)
 bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                   const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -413,8 +645,8 @@ bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                   const float* __restrict__ tmin, const float* __restrict__ tmax,
                   const float4* __restrict__ tri, const int* __restrict__ child,
                   const int* __restrict__ axis, const float4* __restrict__ boxes,
-                  const InstTables it, int n, int t_rows, int tcl, int n_nodes,
-                  int* __restrict__ occ_out, int* __restrict__ err) {
+                  const InstTables it, const SubTable sub, int n, int t_rows, int tcl,
+                  int n_nodes, int* __restrict__ occ_out, int* __restrict__ err) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
@@ -447,22 +679,44 @@ bvh_anyhit_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
             }
           }
         } else {
-          const int s = baked_start(id, t_rows, tcl);
-          for (int j = 0; j < tcl; ++j) {
-            float t;
-            if (moller_trumbore(tri + (size_t)(s + j) * 3, r, &t)) {
-              occluded = 1;
-              break;
-            }
+          // the groups the ray enters in table order against tmax, each
+          // group's rows together; the first hit ends the walk
+          constexpr int kGr = kTcl / kGroups;
+          const int s = baked_start(id, t_rows, kTcl);
+          if (s % kTcl) atomicOr(err, kErrLeafGrid);
+          uint32_t ow[kTcl / 4];
+          float gtn[kGroups];
+          unsigned todo = leaf_groups<kTcl>(sub, s, r, r.tmx, ow, gtn);
+          while (todo && !occluded) {
+            const int g = __ffs(todo) - 1;
+            todo &= todo - 1;
+            int rw[kGr];
+            group_rows<kTcl>(ow, g, s, rw);
+            float t[kGr];
+            bool hit[kGr];
+            test_rows<kGr>(tri, rw, r, t, hit);
+#pragma unroll
+            for (int j = 0; j < kGr; ++j) occluded |= hit[j];
           }
         }
         continue;
       }
-      for (int k = 0; k < 8; ++k) {  // fixed order: any hit terminates
-        float tn;
-        if (!slab(boxes + (size_t)(id * 8 + k) * 2, r, r.tmx, &tn)) continue;
-        if (sp >= kStack) { atomicOr(err, kErrStack); sp = 0; break; }
-        stack[sp++] = __ldg(child + id * 8 + k);
+      if constexpr (kTcl > 0) {
+        float tn[8];
+        int ch[8];
+        const unsigned ok = test_children(boxes, child, id, r, r.tmx, tn, ch);
+        if (sp + __popc(ok) > kStack) { atomicOr(err, kErrStack); break; }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {  // fixed order: any hit terminates
+          if ((ok >> k) & 1u) stack[sp++] = ch[k];
+        }
+      } else {
+        for (int k = 0; k < 8; ++k) {  // fixed order: any hit terminates
+          float tn;
+          if (!slab(boxes + (size_t)(id * 8 + k) * 2, r, r.tmx, &tn)) continue;
+          if (sp >= kStack) { atomicOr(err, kErrStack); sp = 0; break; }
+          stack[sp++] = __ldg(child + id * 8 + k);
+        }
       }
     }
   }
@@ -477,39 +731,98 @@ inline InstTables inst_tables(const int* leaf_start, const int* leaf_inst, const
                     n_leaves};
 }
 
+inline SubTable sub_table(const unsigned char* order, const float* boxes) {
+  return SubTable{order, reinterpret_cast<const float4*>(boxes)};
+}
+
+// Runs f(std::integral_constant<int, tcl>) for a leaf size the baked
+// kernels are compiled for (accel/bvh_traverse.py KERNEL_TCLS), else
+// returns cudaErrorInvalidValue (the wrappers raise before that).
+template <typename F>
+int with_leaf_size(int tcl, F&& f) {
+  switch (tcl) {
+    case 16: f(std::integral_constant<int, 16>{}); break;
+    case 32: f(std::integral_constant<int, 32>{}); break;
+    case 64: f(std::integral_constant<int, 64>{}); break;
+    case 128: f(std::integral_constant<int, 128>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 and its counting forms (kCount 2: K11; 4: the measurement launcher).
+template <int kCount>
+int launch_closest_baked(const float* rox, const float* roy, const float* roz,
+                         const float* rdx, const float* rdy, const float* rdz,
+                         const float* tmin, const float* tmax, const float* tri,
+                         const int* child, const int* axis, const float* boxes,
+                         const unsigned char* sub_order, const float* sub_boxes, int n,
+                         int t_rows, int tcl, int n_nodes, float* t_out, int* i_out,
+                         int* counts, int* err, cudaStream_t stream) {
+  if (kCount > 0 && n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return with_leaf_size(tcl, [&](auto leaf) {
+    if (n <= 0) return;
+    bvh_closest_kernel<false, false, kCount, decltype(leaf)::value>
+        <<<blocks_for(n), kThreads, 0, stream>>>(
+            rox, roy, roz, rdx, rdy, rdz, tmin, tmax, reinterpret_cast<const float4*>(tri),
+            child, axis, reinterpret_cast<const float4*>(boxes), InstTables{},
+            LinearTable{nullptr, nullptr}, sub_table(sub_order, sub_boxes), n, t_rows, tcl,
+            n_nodes, t_out, i_out, nullptr, counts, err);
+  });
+}
+
 }  // namespace
 
 extern "C" int launch_bvh_closest(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, const float* tmin, const float* tmax,
     const float* tri, const int* child, const int* axis, const float* boxes,
-    int n, int t_rows, int tcl, int n_nodes, float* t_out, int* i_out, int* err,
-    cudaStream_t stream) {
-  if (n > 0) {
-    bvh_closest_kernel<false, false, false><<<blocks_for(n), kThreads, 0, stream>>>(
-        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-        reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{},
-        LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr,
-        nullptr, err);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const unsigned char* sub_order, const float* sub_boxes, int n, int t_rows, int tcl,
+    int n_nodes, float* t_out, int* i_out, int* err, cudaStream_t stream) {
+  return launch_closest_baked<0>(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, child, axis,
+                                 boxes, sub_order, sub_boxes, n, t_rows, tcl, n_nodes, t_out,
+                                 i_out, nullptr, err, stream);
+}
+
+// counts: (n / 1024, 2) int32, zeroed by the caller; n % 1024 == 0.
+extern "C" int launch_bvh_closest_count(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* tri, const int* child, const int* axis, const float* boxes,
+    const unsigned char* sub_order, const float* sub_boxes, int n, int t_rows, int tcl,
+    int n_nodes, float* t_out, int* i_out, int* counts, int* err, cudaStream_t stream) {
+  return launch_closest_baked<2>(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, child, axis,
+                                 boxes, sub_order, sub_boxes, n, t_rows, tcl, n_nodes, t_out,
+                                 i_out, counts, err, stream);
+}
+
+// K1 with per-tile counts of its walk, for measurement only (no wrapper;
+// no path launches it): counts (n / 1024, 4) int32 [pops, leaves, groups
+// entered, rows tested], zeroed by the caller; n % 1024 == 0.
+extern "C" int launch_bvh_closest_visits(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* tri, const int* child, const int* axis, const float* boxes,
+    const unsigned char* sub_order, const float* sub_boxes, int n, int t_rows, int tcl,
+    int n_nodes, float* t_out, int* i_out, int* counts, int* err, cudaStream_t stream) {
+  return launch_closest_baked<4>(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, child, axis,
+                                 boxes, sub_order, sub_boxes, n, t_rows, tcl, n_nodes, t_out,
+                                 i_out, counts, err, stream);
 }
 
 extern "C" int launch_bvh_anyhit(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, const float* tmin, const float* tmax,
     const float* tri, const int* child, const int* axis, const float* boxes,
-    int n, int t_rows, int tcl, int n_nodes, int* occ_out, int* err,
-    cudaStream_t stream) {
-  if (n > 0) {
-    bvh_anyhit_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
-        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-        reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{},
-        n, t_rows, tcl, n_nodes, occ_out, err);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const unsigned char* sub_order, const float* sub_boxes, int n, int t_rows, int tcl,
+    int n_nodes, int* occ_out, int* err, cudaStream_t stream) {
+  return with_leaf_size(tcl, [&](auto leaf) {
+    if (n <= 0) return;
+    bvh_anyhit_kernel<false, decltype(leaf)::value><<<blocks_for(n), kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax, reinterpret_cast<const float4*>(tri), child,
+        axis, reinterpret_cast<const float4*>(boxes), InstTables{},
+        sub_table(sub_order, sub_boxes), n, t_rows, tcl, n_nodes, occ_out, err);
+  });
 }
 
 extern "C" int launch_bvh_closest_inst(
@@ -520,12 +833,12 @@ extern "C" int launch_bvh_closest_inst(
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     float* t_out, int* i_out, int* l_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<true, false, false><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<true, false, 0, 0><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
         inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
-        LinearTable{nullptr, nullptr},
+        LinearTable{nullptr, nullptr}, SubTable{},
         n, t_rows, tcl, n_nodes, t_out, i_out, l_out, nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -543,12 +856,12 @@ extern "C" int launch_bvh_closest_inst_count(
     float* t_out, int* i_out, int* l_out, int* counts, int* err, cudaStream_t stream) {
   if (n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    bvh_closest_kernel<true, false, true><<<n / kThreads, kThreads, 0, stream>>>(
+    bvh_closest_kernel<true, false, 4, 0><<<n / kThreads, kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
         inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
-        LinearTable{nullptr, nullptr},
+        LinearTable{nullptr, nullptr}, SubTable{},
         n, t_rows, tcl, n_nodes, t_out, i_out, l_out, counts, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -562,11 +875,11 @@ extern "C" int launch_bvh_anyhit_inst(
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     int* occ_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_anyhit_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_anyhit_kernel<true, 0><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
-        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
+        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves), SubTable{},
         n, t_rows, tcl, n_nodes, occ_out, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -579,30 +892,11 @@ extern "C" int launch_bvh_closest_mt(
     const float* boxes, int n, int t_rows, int tcl, int n_nodes, float* t_out,
     int* i_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<false, true, false><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<false, true, 0, 0><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax, nullptr, child, axis,
         reinterpret_cast<const float4*>(boxes), InstTables{},
-        LinearTable{reinterpret_cast<const float4*>(mt_rows), center},
+        LinearTable{reinterpret_cast<const float4*>(mt_rows), center}, SubTable{},
         n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, nullptr, err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// counts: (n / 1024, 2) int32, zeroed by the caller; n % 1024 == 0.
-extern "C" int launch_bvh_closest_count(
-    const float* rox, const float* roy, const float* roz, const float* rdx,
-    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
-    const float* tri, const int* child, const int* axis, const float* boxes,
-    int n, int t_rows, int tcl, int n_nodes, float* t_out, int* i_out, int* counts,
-    int* err, cudaStream_t stream) {
-  if (n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    bvh_closest_kernel<false, false, true><<<n / kThreads, kThreads, 0, stream>>>(
-        rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
-        reinterpret_cast<const float4*>(tri), child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{},
-        LinearTable{nullptr, nullptr}, n, t_rows, tcl, n_nodes, t_out, i_out, nullptr,
-        counts, err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,8 +32,9 @@ __device__ __forceinline__ float safe_inv(float d) {
   return (d < 0.0f ? -1.0f : 1.0f) / mag;
 }
 
-// The slab test for one box; returns tn (entry distance) and whether the
-// box passes (tn <= tf). An axis on which the ray's direction is exactly 0
+// The slab test for one box loaded as its two float4 halves [lox loy loz
+// hix] [hiy hiz 0 0]; returns tn (entry distance) and whether the box
+// passes (tn <= tf). An axis on which the ray's direction is exactly 0
 // bounds nothing, and the box fails when the origin lies outside its span
 // on that axis (lo <= o <= hi passes, faces included). The reference's
 // _slab8 takes (hi - o) * safe_inv(0) = 0 there, so a ray running along the
@@ -41,12 +42,10 @@ __device__ __forceinline__ float safe_inv(float d) {
 // still hits a triangle edge in that face; a 1024-ray tile of the TPU
 // pushes a box when any lane passes it, which hides that, a walk of one ray
 // per thread does not. Rays with no zero component (all but a few) take
-// the reference's arithmetic unchanged, behind one branch a box on a flag
-// set once per ray.
-__device__ __forceinline__ bool slab(const float4* __restrict__ box,
-                                     const Ray& r, float tfar, float* tn_out) {
-  const float4 lo = __ldg(box);      // lox loy loz hix
-  const float4 hi = __ldg(box + 1);  // hiy hiz 0 0
+// the reference's arithmetic unchanged, behind one branch on a flag set
+// once per ray.
+__device__ __forceinline__ bool slab_box(const float4 lo, const float4 hi, const Ray& r,
+                                         float tfar, float* tn_out) {
   float tx0 = (lo.x - r.ox) * r.ix;
   float ty0 = (lo.y - r.oy) * r.iy;
   float tz0 = (lo.z - r.oz) * r.iz;
@@ -76,12 +75,17 @@ __device__ __forceinline__ bool slab(const float4* __restrict__ box,
   return !outside && tn <= tf;
 }
 
-// _mt_planes + the acceptance test of _sweep_tris_xla; t valid iff true.
-__device__ __forceinline__ bool moller_trumbore(const float4* __restrict__ row,
-                                                const Ray& r, float* t_out) {
-  const float4 a = __ldg(row);      // p0x p0y p0z e1x
-  const float4 b = __ldg(row + 1);  // e1y e1z e2x e2y
-  const float4 c = __ldg(row + 2);  // e2z pad pad pad
+__device__ __forceinline__ bool slab(const float4* __restrict__ box,
+                                     const Ray& r, float tfar, float* tn_out) {
+  return slab_box(__ldg(box), __ldg(box + 1), r, tfar, tn_out);
+}
+
+// _mt_planes + the acceptance test of _sweep_tris_xla on one row loaded as
+// its three float4 [p0x p0y p0z e1x] [e1y e1z e2x e2y] [e2z pad pad pad];
+// t valid iff true.
+__device__ __forceinline__ bool moller_trumbore_row(const float4 a, const float4 b,
+                                                    const float4 c, const Ray& r,
+                                                    float* t_out) {
   const float p0x = a.x, p0y = a.y, p0z = a.z;
   const float e1x = a.w, e1y = b.x, e1z = b.y;
   const float e2x = b.z, e2y = b.w, e2z = c.x;
@@ -102,6 +106,11 @@ __device__ __forceinline__ bool moller_trumbore(const float4* __restrict__ row,
   *t_out = t;
   return fabsf(det) >= kDetEps && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
          t > r.tmn && t < r.tmx;
+}
+
+__device__ __forceinline__ bool moller_trumbore(const float4* __restrict__ row,
+                                                const Ray& r, float* t_out) {
+  return moller_trumbore_row(__ldg(row), __ldg(row + 1), __ldg(row + 2), r, t_out);
 }
 
 __device__ __forceinline__ Ray load_ray(int i, const float* rox, const float* roy,

@@ -15,10 +15,9 @@ from __future__ import annotations
 from dataclasses import fields
 
 import numpy as np
-import torch
 
 from pupiloptixlab_tpu_torch.accel.bvh import bvh_depth
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import make_subleaf_boxes
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import subleaf_table
 from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.device import resolve_device
 from pupiloptixlab_tpu_torch.flatten.flatten import _t
@@ -44,8 +43,8 @@ _GROUPS = {
 }
 
 
-# TriSoup fields made here, not carried (subleaf_boxes is the port's own)
-_DERIVED = ("bvh_depth", "super_boxes", "subleaf_boxes")
+# TriSoup fields made here, not carried (the sub-leaf table is the port's own)
+_DERIVED = ("bvh_depth", "super_boxes", "subleaf_boxes", "subleaf_rows")
 
 
 def _table(cls, leaves: dict, device):
@@ -61,11 +60,10 @@ def scene_from_arrays(tree: dict, config: RenderConfig, device=None) -> SceneDat
     parts = {g: _table(cls, tree[g], device) for g, cls in _GROUPS.items()}
     depth = bvh_depth(np.asarray(tree["tris"]["bvh_child"])) if config.bvh_nodes > 0 else 0
     packed = parts["tris"]["packed"]
-    subleaf = (make_subleaf_boxes(packed, config.bvh_tcl) if config.instanced
-               else torch.zeros((1, 8), dtype=torch.float32, device=packed.device))
+    rows, boxes = subleaf_table(packed, config.bvh_tcl, config.bvh_nodes, config.instanced)
     parts["tris"] = TriSoup(**parts["tris"], bvh_depth=depth,
                             super_boxes=super_boxes(parts["tris"]["chunk_boxes"]),
-                            subleaf_boxes=subleaf)
+                            subleaf_boxes=boxes, subleaf_rows=rows)
     for g, cls in _GROUPS.items():
         if g != "tris":
             parts[g] = cls(**parts[g])

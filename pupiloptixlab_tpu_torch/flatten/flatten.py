@@ -41,7 +41,7 @@ from pupiloptixlab_tpu_torch.accel.bvh import (
     bvh_depth,
     pick_leaf_size,
 )
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import make_subleaf_boxes
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import subleaf_table
 from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.flatten.types import (
     N_SLOTS,
@@ -874,6 +874,7 @@ def flatten_scene(
         chunk_boxes = _t(np.zeros((max(packed.shape[0] // tc, 1), 8), np.float32),
                          device=device)
         packed_t = _t(packed, device=device)
+        sub_rows, sub_boxes = subleaf_table(packed_t, bvh_tcl, bvh_nodes, instanced=True)
         tris = TriSoup(
             packed=packed_t,
             chunk_boxes=chunk_boxes,
@@ -888,14 +889,17 @@ def flatten_scene(
             leaf_inst=_t(inst_tab["leaf_inst"], device=device),
             inst_w2o=_t(inst_tab["inst_w2o"], device=device),
             inst_packed=_t(inst_tab["inst_packed"], device=device),
-            subleaf_boxes=make_subleaf_boxes(packed_t, bvh_tcl),
+            subleaf_boxes=sub_boxes,
+            subleaf_rows=sub_rows,
             bvh_depth=bvh_depth(bvh_ch),
         )
         tri_count = inst_tab["tri_count_padded"]
     else:
         chunk_boxes = _t(boxes, device=device)
+        packed_t = _t(packed, device=device)
+        sub_rows, sub_boxes = subleaf_table(packed_t, bvh_tcl, bvh_nodes, instanced=False)
         tris = TriSoup(
-            packed=_t(packed, device=device),
+            packed=packed_t,
             chunk_boxes=chunk_boxes,
             super_boxes=super_boxes(chunk_boxes),
             attrs=_t(attrs, device=device),
@@ -908,7 +912,8 @@ def flatten_scene(
             leaf_inst=torch.zeros(1, dtype=torch.int32, device=device),
             inst_w2o=torch.zeros((1, 12), dtype=torch.float32, device=device),
             inst_packed=torch.zeros((1, 16), dtype=torch.float32, device=device),
-            subleaf_boxes=torch.zeros((1, 8), dtype=torch.float32, device=device),
+            subleaf_boxes=sub_boxes,
+            subleaf_rows=sub_rows,
             bvh_depth=bvh_depth(bvh_ch) if bvh_nodes > 0 else 0,
         )
 

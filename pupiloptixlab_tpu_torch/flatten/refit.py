@@ -15,7 +15,9 @@ OPTIX_BUILD_OPERATION_UPDATE) and resets the touched area emitters
   rows from the unique object-space rows and the per-instance transforms,
   then the chunk, super and BVH boxes and the area-emitter rows and
   selection CDF, as plain PyTorch on the tables' device (the reference's
-  jitted jnp function; it has no Pallas kernel). Shapes never change.
+  jitted jnp function; it has no Pallas kernel), and the port's sub-leaf
+  group boxes from the moved rows in the kept row order (stale boxes would
+  drop hits). Shapes never change.
 
 Refit semantics kept from the reference: the BVH keeps its topology (box
 quality degrades after large moves, as an OptiX refit does), and a hidden
@@ -30,6 +32,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import baked_subleaf_boxes
 from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
 from pupiloptixlab_tpu_torch.flatten.types import (
     EM_AREA,
@@ -273,6 +276,9 @@ def _refit_device(
             [s_lo, s_hi, torch.zeros((m8, 2), dtype=torch.float32, device=lo.device)], dim=1)
     else:
         bvh_boxes = tris.bvh_boxes
+    # the sub-leaf groups keep their rows; their boxes follow the rows
+    subleaf_boxes = (baked_subleaf_boxes(packed, tris.subleaf_rows, tcl)
+                     if tris.subleaf_rows.shape[0] == t_pad else tris.subleaf_boxes)
 
     new_tris = replace(
         tris,
@@ -281,6 +287,7 @@ def _refit_device(
         chunk_boxes=chunk_boxes,
         super_boxes=super_boxes(chunk_boxes),
         bvh_boxes=bvh_boxes,
+        subleaf_boxes=subleaf_boxes,
     )
 
     # --- emitters ------------------------------------------------------------

@@ -121,10 +121,18 @@ class TriSoup:
     per-instance leaf boxes whose leaf ids ``-(li+1)`` index
     ``leaf_start`` / ``leaf_inst``, and the traversal maps the ray into
     the leaf's instance space through ``inst_w2o`` (directions are not
-    renormalised, so t stays the world parameter). ``subleaf_boxes`` is
-    the port's own: 8 object-space boxes a unique leaf
-    (accel/bvh_traverse.py ``make_subleaf_boxes``), derived from ``packed``
-    once a flatten, which the instanced refit never changes."""
+    renormalised, so t stays the world parameter).
+
+    ``subleaf_rows`` / ``subleaf_boxes`` are the port's own sub-leaf table,
+    derived from ``packed`` once a flatten (accel/bvh_traverse.py). On a
+    baked tree (``bvh_nodes > 0``): the (T,) uint8 leaf-local row order of
+    each leaf's 8 spatial groups and the (T/tcl*8, 8) world group boxes
+    (``make_baked_subleaf``), which the baked refit rebuilds from the moved
+    rows in the kept order. On instanced tables: ``subleaf_rows`` is a (1,)
+    placeholder and ``subleaf_boxes`` the 8 object-space boxes a unique leaf
+    over consecutive rows (``make_subleaf_boxes``), which the instanced
+    refit never changes. Without a tree (the chunk sweep): (1,) and (1, 8)
+    placeholders."""
 
     packed: torch.Tensor       # (T,12) [p0, e1, e2, pad]
     chunk_boxes: torch.Tensor  # (T/64, 8)
@@ -139,7 +147,8 @@ class TriSoup:
     inst_w2o: torch.Tensor     # (I, 12) f32 world->object 3x4 row-major
     inst_packed: torch.Tensor  # (I, INST_COLS) f32 shading row
     super_boxes: torch.Tensor  # (G, 8) over groups of 32 chunk boxes (accel/sweep.py)
-    subleaf_boxes: torch.Tensor  # (T/tcl*8, 8) object-space group boxes (K7/K8); (1, 8) baked
+    subleaf_boxes: torch.Tensor  # (T/tcl*8, 8) group boxes: world (K1/K2/K11) or object (K7/K8)
+    subleaf_rows: torch.Tensor   # (T,) u8 leaf-local row order (K1/K2/K11); (1,) otherwise
     bvh_depth: int = 0
 
 

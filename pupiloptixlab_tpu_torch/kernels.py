@@ -50,11 +50,13 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "bvh_closest": ("bvh_traverse", "launch_bvh_closest",
-                    [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+                    [_P] * 8 + [_P] * 6 + [_I] * 4 + [_P] * 4),
     "bvh_closest_count": ("bvh_traverse", "launch_bvh_closest_count",
-                          [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                          [_P] * 8 + [_P] * 6 + [_I] * 4 + [_P] * 5),
+    "bvh_closest_visits": ("bvh_traverse", "launch_bvh_closest_visits",
+                           [_P] * 8 + [_P] * 6 + [_I] * 4 + [_P] * 5),
     "bvh_anyhit": ("bvh_traverse", "launch_bvh_anyhit",
-                   [_P] * 8 + [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+                   [_P] * 8 + [_P] * 6 + [_I] * 4 + [_P] * 3),
     "bvh_closest_inst": ("bvh_traverse", "launch_bvh_closest_inst",
                          [_P] * 8 + [_P] * 8 + [_I] * 5 + [_P] * 5),
     "bvh_closest_inst_count": ("bvh_traverse", "launch_bvh_closest_inst_count",

@@ -44,7 +44,8 @@ def tile_costs(scene: SceneData, camera: CameraBlock, config: RenderConfig) -> n
     n = pix.shape[0]
     planes = [p.expand(n).contiguous() for p in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
     _, _, counts = bvh_closest(*planes, tmin, tmax, tris.packed, tris.bvh_child,
-                               tris.bvh_axis, tris.bvh_boxes, tcl=config.bvh_tcl,
+                               tris.bvh_axis, tris.bvh_boxes, tris.subleaf_rows,
+                               tris.subleaf_boxes, tcl=config.bvh_tcl,
                                depth=tris.bvh_depth, count_iters=True)
     return counts[:, 0].cpu().numpy().astype(np.int64)
 

@@ -180,7 +180,8 @@ def single_process(ranks: int, device, depth: int = DEPTH) -> dict:
         out.update(bvh_t=out["closest_t"], bvh_i=out["closest_i"])
     else:
         t, i = bvh_closest(*planes, tris.packed, tris.bvh_child, tris.bvh_axis,
-                           tris.bvh_boxes, tcl=config.bvh_tcl, depth=tris.bvh_depth)
+                           tris.bvh_boxes, tris.subleaf_rows, tris.subleaf_boxes,
+                           tcl=config.bvh_tcl, depth=tris.bvh_depth)
         out.update(bvh_t=_np(t), bvh_i=_np(i))
     return out
 

@@ -17,9 +17,9 @@ Two forms, as in the reference:
   brute sweep (``inner="plain"``, the reference's jnp inner) or K5
   ``sweep_closest`` with chunk boxes built from the held rows each round
   (``inner="kernel"``, the reference's Pallas inner).
-* ``ring_closest_bvh``: each shard carries its own 8-wide BVH
-  (``build_ring_bvh``), and each round runs K1 ``bvh_closest`` over the
-  held shard's tree.
+* ``ring_closest_bvh``: each shard carries its own 8-wide BVH and sub-leaf
+  table (``build_ring_bvh``), and each round runs K1 ``bvh_closest`` over
+  the held shard's tree.
 
 One round (test the held shard, merge by strict t < best t, map shard rows
 to global rows) is ``sweep_round`` / ``bvh_round``; the distributed loops
@@ -40,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from pupiloptixlab_tpu_torch.accel.bvh import BvhArrays, build_bvh, bvh_depth, pick_leaf_size
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_closest
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_closest, make_baked_subleaf
 from pupiloptixlab_tpu_torch.accel.sweep import CHUNK, MAX_DISTANCE, plain_sweep_closest, sweep_closest
 from pupiloptixlab_tpu_torch.parallel.sharding import check_group
 
@@ -56,10 +56,18 @@ class RingBvh:
     child: torch.Tensor   # (D, M*8) i32
     axis: torch.Tensor    # (D, M) i32
     boxes: torch.Tensor   # (D, M*8, 8) f32
+    subleaf_rows: torch.Tensor   # (D, S) u8 each shard tree's sub-leaf row order
+    subleaf_boxes: torch.Tensor  # (D, S/tcl*8, 8) f32 and its group boxes
     remap: torch.Tensor   # (D*S,) i32: (shard, local row) -> global row
     depth: tuple          # (D,) each shard tree's depth (the kernels' stack check)
     shard_rows: int
     tcl: int
+
+    def shard_tables(self, s: int) -> tuple:
+        """K1's six tables of shard ``s``: (rows, child, axis, boxes,
+        subleaf_rows, subleaf_boxes), the ones a round holds."""
+        return tuple(x[s] for x in (self.rows, self.child, self.axis, self.boxes,
+                                    self.subleaf_rows, self.subleaf_boxes))
 
 
 def build_ring_bvh(tris_packed: torch.Tensor, n_shards: int, tcl: int | None = None,
@@ -67,7 +75,8 @@ def build_ring_bvh(tris_packed: torch.Tensor, n_shards: int, tcl: int | None = N
     """Split the global BVH-ordered (T, 12) table into ``n_shards``
     contiguous row ranges (compact in space, since the table is in BVH
     order) and build one 8-wide BVH per shard with the flatten's builder
-    (accel/bvh.py). The tables land on ``tris_packed``'s device."""
+    (accel/bvh.py), and its sub-leaf table (``make_baked_subleaf``). The
+    tables land on ``tris_packed``'s device."""
     rows = tris_packed.detach().cpu().numpy().astype(np.float32)
     t, cols = rows.shape
     d = n_shards
@@ -118,11 +127,15 @@ def build_ring_bvh(tris_packed: torch.Tensor, n_shards: int, tcl: int | None = N
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(tris_packed.device)
 
+    rows_t = put(np.stack(shard_rows_l))
+    subs = [make_baked_subleaf(rows_t[s], tcl) for s in range(d)]
     return RingBvh(
-        rows=put(np.stack(shard_rows_l)),
+        rows=rows_t,
         child=put(np.stack([p[0] for p in padded])),
         axis=put(np.stack([p[1] for p in padded])),
         boxes=put(np.stack([p[2] for p in padded])),
+        subleaf_rows=torch.stack([r for r, _ in subs]),
+        subleaf_boxes=torch.stack([b for _, b in subs]),
         remap=put(np.concatenate(remap).astype(np.int32)),
         depth=tuple(bvh_depth(c) for c in childs),
         shard_rows=shard_rows,
@@ -164,12 +177,10 @@ def _rotate(tensors, group):
 
 
 def bvh_round(best_t, best_i, planes, held, shard: int, ring: RingBvh):
-    """One round of ``ring_closest_bvh``: K1 over ``held`` = (rows, child,
-    axis, boxes) of shard ``shard`` (its own tree), merged into (best_t,
+    """One round of ``ring_closest_bvh``: K1 over ``held`` =
+    ``ring.shard_tables(shard)`` (its own tree), merged into (best_t,
     best_i) by strict t < best_t, shard rows mapped to global rows."""
-    rows, child, axis, boxes = held
-    t, i = bvh_closest(*planes, rows, child, axis, boxes, tcl=ring.tcl,
-                       depth=ring.depth[shard])
+    t, i = bvh_closest(*planes, *held, tcl=ring.tcl, depth=ring.depth[shard])
     glob = torch.where(i >= 0, ring.remap[shard * ring.shard_rows + i.clamp(min=0).long()],
                        -1)
     return _merge(best_t, best_i, t, glob)
@@ -238,12 +249,13 @@ def ring_closest(group, ro_flat, rd_flat, tmin, tmax, shard: torch.Tensor,
 def ring_closest_bvh(group, ro_flat, rd_flat, tmin, tmax, ring: RingBvh):
     """Closest hit with per-shard BVH traversal under rotation: D rounds of
     ``bvh_round``, this rank starting on shard ``rank`` and the (rows,
-    child, axis, boxes) of the held shard rotating one hop a round."""
+    child, axis, boxes and sub-leaf table) of the held shard rotating one
+    hop a round."""
     check_group(group, tmin.device)
     my, d = dist.get_rank(group), dist.get_world_size(group)
     planes = _planes(ro_flat, rd_flat, tmin, tmax)
     best_t, best_i = _misses(tmin.shape[0], tmin.device)
-    held = tuple(x[my].contiguous() for x in (ring.rows, ring.child, ring.axis, ring.boxes))
+    held = tuple(x.contiguous() for x in ring.shard_tables(my))
     for k in range(d):
         best_t, best_i = bvh_round(best_t, best_i, planes, held, (my + k) % d, ring)
         if k + 1 < d:

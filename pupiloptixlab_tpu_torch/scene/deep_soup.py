@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from pupiloptixlab_tpu_torch.accel.bvh import build_bvh, bvh_depth, pick_leaf_size
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import make_baked_subleaf
 
 
 def soup_vertices(n_tris: int = 20000, sigma: float = 4.0, seed: int = 1,
@@ -32,7 +33,7 @@ def soup_vertices(n_tris: int = 20000, sigma: float = 4.0, seed: int = 1,
 def soup_tables(n_tris: int = 20000, sigma: float = 4.0, seed: int = 1, device="cpu"):
     """The soup flattened as the flatten lays out a BVH scene: rows
     [p0, e1, e2, pad] in BVH order (padded to whole leaves with zero rows),
-    the node tables, the leaf size and the depth."""
+    the node tables, the sub-leaf table, the leaf size and the depth."""
     p0, p1, p2 = soup_vertices(n_tris, sigma, seed)
     tcl = pick_leaf_size(n_tris)
     t_pad = max(-(-n_tris // tcl), 2) * tcl
@@ -51,9 +52,11 @@ def soup_tables(n_tris: int = 20000, sigma: float = 4.0, seed: int = 1, device="
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return {"tri": dev(rows), "child": dev(bv.child), "axis": dev(bv.axis),
-            "boxes": dev(bv.boxes), "tcl": tcl, "depth": bvh_depth(bv.child),
-            "n_nodes": bv.n_nodes}
+    tri = dev(rows)
+    sub_rows, sub_boxes = make_baked_subleaf(tri, tcl)
+    return {"tri": tri, "child": dev(bv.child), "axis": dev(bv.axis),
+            "boxes": dev(bv.boxes), "subleaf_rows": sub_rows, "subleaf_boxes": sub_boxes,
+            "tcl": tcl, "depth": bvh_depth(bv.child), "n_nodes": bv.n_nodes}
 
 
 def soup_rays(tri: torch.Tensor, n_rays: int, seed: int = 2):

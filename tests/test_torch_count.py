@@ -49,7 +49,8 @@ def mesh_env():
     planes = [p.expand(n).contiguous() for p in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
     planes += [tmin, tmax]
     tris = data.tris
-    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes)
+    tabs = (tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes, tris.subleaf_rows,
+            tris.subleaf_boxes)
     return scene, data, config, cam, planes, tabs
 
 
@@ -65,7 +66,8 @@ def brute(mesh_env):
 
 def test_tree_walk_matches_brute_sweep_on_mesh_env(mesh_env, brute):
     _, data, config, _, planes, tabs = mesh_env
-    t, idx, pops, leaves, deepest = bt.tree_walk(*planes, *tabs, config.bvh_tcl)
+    w = bt.tree_walk(*planes, *tabs, config.bvh_tcl)
+    t, idx, pops, leaves, deepest = w["t"], w["idx"], w["pops"], w["leaves"], w["deepest"]
     lanes, (t_b, i_b) = brute
     assert torch.equal(idx[lanes], i_b)
     assert torch.equal(t[lanes], t_b)
@@ -81,8 +83,10 @@ def test_tree_walk_on_the_deep_soup():
     need = 7 * soup["depth"] + 1
     assert need > 64 and bt.stack_fits(soup["depth"])
     planes = soup_rays(soup["tri"], 1024)
-    tabs = (soup["tri"], soup["child"], soup["axis"], soup["boxes"])
-    t, idx, _, _, deepest = bt.tree_walk(*planes, *tabs, soup["tcl"])
+    tabs = (soup["tri"], soup["child"], soup["axis"], soup["boxes"], soup["subleaf_rows"],
+            soup["subleaf_boxes"])
+    w = bt.tree_walk(*planes, *tabs, soup["tcl"])
+    t, idx, deepest = w["t"], w["idx"], w["deepest"]
     t_b, i_b = bt.plain_closest(*planes, soup["tri"])
     print(f"deep soup: {soup['n_nodes']} nodes, depth {soup['depth']}, stack bound {need}, "
           f"deepest stack reached {deepest}, {int((i_b >= 0).sum())}/1024 hits")
@@ -100,9 +104,9 @@ def test_count_iters_on_cpu_tensors(mesh_env, brute):
     kw = dict(tcl=config.bvh_tcl, depth=data.tris.bvh_depth)
     t, idx, counts = bt.bvh_closest(*sub, *tabs, **kw, count_iters=True)
     assert torch.equal(t, t1) and torch.equal(idx, i1)
-    _, _, pops, leaves, _ = bt.tree_walk(*sub, *tabs, config.bvh_tcl)
+    w = bt.tree_walk(*sub, *tabs, config.bvh_tcl)
     assert counts.dtype == torch.int32 and counts.shape == (4, 2)
-    want = torch.stack([pops, leaves], 1).reshape(4, 1024, 2).sum(1).to(torch.int32)
+    want = torch.stack([w["pops"], w["leaves"]], 1).reshape(4, 1024, 2).sum(1).to(torch.int32)
     assert torch.equal(counts, want)
     with pytest.raises(ValueError, match="multiple"):
         bt.bvh_closest(*[p[:1000] for p in sub], *tabs, **kw, count_iters=True)

@@ -119,6 +119,7 @@ def _compare(planes, packed, got_t, got_i, want_t, want_i, rtol, max_ties, atol=
 def _port(planes, packed, bvh):
     p = [torch.from_numpy(np.ascontiguousarray(a)) for a in planes]
     tabs = [torch.from_numpy(a) for a in (packed, bvh.child, bvh.axis, bvh.boxes)]
+    tabs += bt.make_baked_subleaf(tabs[0], bvh.tcl)
     kw = dict(tcl=bvh.tcl, depth=bvh_depth(bvh.child))
     t, i = bt.bvh_closest(*p, *tabs, **kw)
     occ = bt.bvh_anyhit(*p, *tabs, **kw)
@@ -230,7 +231,8 @@ def test_stack_bound_is_checked():
     assert bt.stack_fits(18) and not bt.stack_fits(19)
     p = [torch.zeros(4, device="meta") for _ in range(8)]
     tabs = (torch.zeros((16, 12), device="meta"), torch.zeros(8, dtype=torch.int32, device="meta"),
-            torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros((8, 8), device="meta"))
+            torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros((8, 8), device="meta"),
+            torch.zeros(16, dtype=torch.uint8, device="meta"), torch.zeros((8, 8), device="meta"))
     with pytest.raises(ValueError, match="stack"):
         bt.bvh_closest(*p, *tabs, tcl=16, depth=19)
 
@@ -245,7 +247,8 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
     kernels.reset_launches()
     p = [torch.zeros(4, device="meta") for _ in range(8)]
     tabs = (torch.zeros((16, 12), device="meta"), torch.zeros(8, dtype=torch.int32, device="meta"),
-            torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros((8, 8), device="meta"))
+            torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros((8, 8), device="meta"),
+            torch.zeros(16, dtype=torch.uint8, device="meta"), torch.zeros((8, 8), device="meta"))
     for fn, name in ((bt.bvh_closest, "bvh_closest"), (bt.bvh_anyhit, "bvh_anyhit")):
         with pytest.raises(RuntimeError, match=f"launch {name}"):
             fn(*p, *tabs, tcl=16, depth=2)

@@ -134,8 +134,9 @@ def test_tree_walk_matches_brute_sweep_on_rays_along_box_faces(frame_tables, sin
     tris = data.tris
     on_face = (tris.bvh_boxes[:, 0] == 0) | (tris.bvh_boxes[:, 3] == 0)
     assert int(along.sum()) == 32 and bool(on_face.any())
-    t, idx, _, _, _ = bt.tree_walk(*planes, tris.packed, tris.bvh_child, tris.bvh_axis,
-                                   tris.bvh_boxes, config.bvh_tcl)
+    w = bt.tree_walk(*planes, tris.packed, tris.bvh_child, tris.bvh_axis, tris.bvh_boxes,
+                     tris.subleaf_rows, tris.subleaf_boxes, config.bvh_tcl)
+    t, idx = w["t"], w["idx"]
     assert (single["closest_i"][along.numpy()] >= 0).any()
     np.testing.assert_array_equal(idx.numpy(), single["closest_i"])
     np.testing.assert_array_equal(t.numpy(), single["closest_t"])

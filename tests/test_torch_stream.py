@@ -60,7 +60,8 @@ def test_streaming_branch_tables_and_plain_traversal(monkeypatch):
     planes = [np.ascontiguousarray(a) for a in (*ro, *rd, tmin, tmax)]
     p = [torch.from_numpy(a) for a in planes]
     tr = td.tris
-    tabs = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes)
+    tabs = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes, tr.subleaf_rows,
+            tr.subleaf_boxes)
     t, i = bt.bvh_closest(*p, *tabs, tcl=tc.bvh_tcl, depth=tr.bvh_depth)
     occ = bt.bvh_anyhit(*p, *tabs, tcl=tc.bvh_tcl, depth=tr.bvh_depth)
     j = [jnp.asarray(a) for a in planes]
