@@ -5,10 +5,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 K3 and K4 alone:                  python3 chip_smoke.py --tables LABEL [--package DIR]
 K7 and K8 alone:                  python3 chip_smoke.py --inst LABEL [--package DIR]
 K1, K2 and K11 alone:             python3 chip_smoke.py --bvh LABEL [--package DIR]
+K5 and K6 alone:                  python3 chip_smoke.py --sweep LABEL [--package DIR]
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
-timing in the same call; main_tables, main_inst and main_bvh say what they
-run.)
+timing in the same call; main_tables, main_inst, main_bvh and main_sweep
+say what they run.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -55,9 +56,19 @@ Phases (each fails the run on its first fault; nothing is caught):
               timed at full N, on (a) data/oracle_mat.xml's table (1 chunk),
               (b) mesh_env's table flattened under PUPIL_NO_BVH (321 chunks,
               11 super-boxes; here K5 at full N must also equal K1 bit for
-              bit), (c) seeded triangle soups of 128, 512 and 2,560 rows:
-              one case for each branch of the reference's sweep_triangles
-              (checked and timed, but outside the sums of the kernels line)
+              bit), (c) seeded triangle soups of 128, 512, 1,024 and 2,560
+              rows: one case for each branch of the reference's
+              sweep_triangles, and the largest table the default route
+              makes (checked and timed, but outside the sums of the kernels
+              line); every call passes the table's live rows (rows=);
+              (d) K5 and K6 against themselves at rows = T with all-pass
+              boxes (the full scan) on all 2,073,600 lanes of the primary,
+              bounce, shadow, unjittered and vertical rays of oracle_mat,
+              the four soups and mesh_env under PUPIL_NO_BVH (t bit-equal,
+              rows and flags equal), and ties across two chunks (table
+              order) and across two groups and their chunks (34 chunks,
+              nearest first) that K5 must give to the lowest row
+              (sweep_tie_case)
   6. system   System + PTPass through set_scene / run at 1920x1080, depth 4:
               oracle_mat (1 warm-up + 4 timed frames) and mesh_env under
               PUPIL_NO_BVH (1 warm-up + 2 timed), each with the counters
@@ -181,7 +192,9 @@ sheet. For the traversals and the culled sweep the operations are a floor
 counted from this run's rays (the box tests every live ray must make and
 the tests every hit ray must make: one row, K1, K11 and K7 18 +
 MT_FLOPS_CLOSEST, K2 MT_FLOPS_ANY, K8 18 + MT_FLOPS_ANY; K10 its leaf's 32
-linear-form rows; K5/K6 the one chunk; whatever the kernel tests). K9's operations are counted
+linear-form rows; K5 18 + MT_FLOPS_CLOSEST, K6 MT_FLOPS_ANY; whatever the
+kernel tests). The sweeps' bound counts the live rows alone (rows=: the
+rows below it, their bytes and their boxes'), at every chunk count. K9's operations are counted
 per tap (41 guided, 18 unguided) plus 10 per pixel, as csrc/atrous.cu says.
 
 In the {"kernels": [...]} line each kernel's ms, plain_ms, library_ms and
@@ -898,7 +911,8 @@ def make_soup(rows: int, device):
     """A seeded triangle soup inside oracle_mat's stage (so that the scene's
     rays cross it): ``rows`` table rows, the last 5 left as all-zero padding,
     sorted along x so that chunks are compact; returns (tri (rows, 12),
-    chunk boxes (rows / 64, 8)) built as the flatten builds them."""
+    chunk boxes (rows / 64, 8) built as the flatten builds them, the live
+    row count rows - 5)."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(rows)
@@ -918,16 +932,20 @@ def make_soup(rows: int, device):
     boxes = torch.zeros((rows // 64, 8))
     boxes[:, 0:3] = v_lo.reshape(-1, 64, 3).amin(1)
     boxes[:, 3:6] = v_hi.reshape(-1, 64, 3).amax(1)
-    return tri.to(device), boxes.to(device)
+    return tri.to(device), boxes.to(device), valid
 
 
-def check_sweeps(case, tri, boxes, rays, lanes, plain_full, summed, k5, k6, bounds,
+def check_sweeps(case, tri, boxes, rows, rays, lanes, plain_full, summed, k5, k6, bounds,
                  details):
-    """K5 and K6 on one table: exact against the plain versions on the lane
-    subset, timed at full N; the plain versions are timed at full N for the
-    ray sets named in ``plain_full``, and with ``summed`` (a main path's
-    own table) those calls enter the sums of ``k5`` / ``k6`` (kernel, plain
-    and bound over the same work)."""
+    """K5 and K6 on one table (``rows`` its live rows, ``boxes`` its
+    ``sweep_boxes``): exact against the plain versions on the lane subset,
+    timed at full N; the plain versions are timed at full N for the ray
+    sets named in ``plain_full``, and with ``summed`` (a main path's own
+    table) those calls enter the sums of ``k5`` / ``k6`` (kernel, plain and
+    bound over the same work). The bound counts the live rows alone: their
+    bytes and their boxes', the box tests of every live ray (one a
+    chunk-box group) and one row test for every ray that hits or is
+    occluded."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import sweep as sw
@@ -935,13 +953,13 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, summed, k5, k6, boun
     n = rays["primary"][2].shape[0]
     n_chunks = tri.shape[0] // sw.CHUNK
     n_groups = sw.group_count(n_chunks)
-    culled = n_groups > 1
-    sboxes = sw.super_boxes(boxes)  # once per table, as the flatten builds them
-    tables = (tri, boxes, sboxes) if culled else (tri,)
-    out = {"rows": tri.shape[0], "chunks": n_chunks, "groups": n_groups}
+    live_chunks = -(-rows // sw.CHUNK)
+    live_groups = sw.group_count(live_chunks) if live_chunks > sw.GROUP else 0
+    tables = (tri[:rows], boxes[:live_chunks], boxes[n_chunks:n_chunks + live_groups])
+    out = {"rows": tri.shape[0], "live_rows": rows, "chunks": n_chunks, "groups": n_groups}
     for label in ("primary", "bounce"):
         full = planes_of(rays[label])
-        t_k, i_k = sw.sweep_closest(*full, tri, boxes, sboxes)
+        t_k, i_k = sw.sweep_closest(*full, tri, boxes, rows=rows)
         sub = planes_of(rays[label], lanes)
         t_p, i_p = sw.plain_sweep_closest(*sub, tri, boxes)
         t_ks, i_ks = t_k[lanes], i_k[lanes]
@@ -949,11 +967,10 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, summed, k5, k6, boun
         bit_t = bool(torch.equal(t_ks, t_p))
         hits = int((i_p >= 0).sum())
         err = float((t_ks - t_p).abs().max())
-        ms = cuda_time_ms(lambda: sw.sweep_closest(*full, tri, boxes, sboxes), reps=3)
+        ms = cuda_time_ms(lambda: sw.sweep_closest(*full, tri, boxes, rows=rows), reps=3)
         live = int((full[7] > full[6]).sum())
         flops = (live * n_groups * SLAB_FLOPS
-                 + int((i_k >= 0).sum()) * sw.CHUNK * MT_FLOPS_CLOSEST
-                 if culled else live * tri.shape[0] * MT_FLOPS_CLOSEST)
+                 + int((i_k >= 0).sum()) * (18 + MT_FLOPS_CLOSEST))
         n_bytes = nbytes(*full, *tables, t_k, i_k)
         rec = {"ms": ms, "hits": hits, "mismatches": mism, "t_bit_equal": bit_t}
         msg = (f"  K5 {case} {label}: {hits}/{lanes.numel()} hits, row mismatches {mism}, "
@@ -975,16 +992,14 @@ def check_sweeps(case, tri, boxes, rays, lanes, plain_full, summed, k5, k6, boun
         out[f"closest_{label}"] = rec
     for label in ("shadow", "bounce"):
         full = planes_of(rays[label])
-        occ_k = sw.sweep_anyhit(*full, tri, boxes, sboxes)
+        occ_k = sw.sweep_anyhit(*full, tri, boxes, rows=rows)
         sub = planes_of(rays[label], lanes)
         occ_p = sw.plain_sweep_anyhit(*sub, tri, boxes)
         mism = int((occ_k[lanes] != occ_p).sum())
-        ms = cuda_time_ms(lambda: sw.sweep_anyhit(*full, tri, boxes, sboxes), reps=3)
+        ms = cuda_time_ms(lambda: sw.sweep_anyhit(*full, tri, boxes, rows=rows), reps=3)
         live = int((full[7] > full[6]).sum())
         occluded = int(occ_k.sum())
-        flops = (live * n_groups * SLAB_FLOPS + occluded * MT_FLOPS_ANY
-                 if culled else
-                 ((live - occluded) * tri.shape[0] + occluded) * MT_FLOPS_ANY)
+        flops = live * n_groups * SLAB_FLOPS + occluded * MT_FLOPS_ANY
         n_bytes = nbytes(*full, *tables, occ_k)
         rec = {"ms": ms, "occluded": int(occ_p.sum()), "mismatches": mism}
         msg = (f"  K6 {case} {label}: {int(occ_p.sum())}/{lanes.numel()} occluded, "
@@ -1041,16 +1056,18 @@ def phase_sweep(mesh_bvh, bounds, results):
                   bounds["gather_planes"])
     check_counts("oracle_mat", rays_mat["counts"], results["kernels"]["count_less"],
                  bounds["count_less"])
-    check_sweeps("oracle_mat", data.tris.packed, data.tris.chunk_boxes, rays_mat, lanes,
-                 ("primary", "bounce", "shadow"), True, k5, k6, bounds, details)
+    check_sweeps("oracle_mat", data.tris.packed, data.tris.sweep_boxes, config.tri_count,
+                 rays_mat, lanes, ("primary", "bounce", "shadow"), True, k5, k6, bounds,
+                 details)
 
     # (c) soups in oracle_mat's stage under oracle_mat's rays: 2 chunks (the
-    # reference's _kernel_grid), 8 chunks (unrolled, no culling), 40 chunks
-    # (2 super-boxes, culled)
-    for rows in (128, 512, 2560):
-        tri, boxes = make_soup(rows, data.tris.packed.device)
-        check_sweeps(f"soup_{rows}", tri, boxes, rays_mat, lanes, ("primary",), False,
-                     k5, k6, bounds, details)
+    # reference's _kernel_grid), 8 and 16 chunks (unrolled, no culling; 16
+    # the largest table the default route makes), 40 chunks (2 super-boxes,
+    # culled)
+    for rows in SOUP_ROWS:
+        tri, _, live = make_soup(rows, data.tris.packed.device)
+        check_sweeps(f"soup_{rows}", tri, bt.sweep_boxes(tri), live, rays_mat, lanes,
+                     ("primary",), False, k5, k6, bounds, details)
     del data, rays_mat
 
     # (b) mesh_env flattened under PUPIL_NO_BVH: 321 chunks, 11 super-boxes
@@ -1060,8 +1077,8 @@ def phase_sweep(mesh_bvh, bounds, results):
             f"mesh_env under PUPIL_NO_BVH: {config.bvh_nodes} nodes, "
             f"{tris.chunk_boxes.shape[0]} chunks")
     rays = main_path_rays(data, config, cam)
-    check_sweeps("mesh_env_nobvh", tris.packed, tris.chunk_boxes, rays, lanes,
-                 ("primary", "shadow"), True, k5, k6, bounds, details)
+    check_sweeps("mesh_env_nobvh", tris.packed, tris.sweep_boxes, config.tri_count, rays,
+                 lanes, ("primary", "shadow"), True, k5, k6, bounds, details)
     # K5 against K1 at full N on the same rays. The two tables hold the same
     # triangles in another row order, so rows are compared by their content.
     bvh_data, bvh_config = mesh_bvh
@@ -1073,7 +1090,7 @@ def phase_sweep(mesh_bvh, bounds, results):
                           *rays["primary"][2:])
     for label in ("primary", "bounce", "unjittered"):
         full = planes_of(rays[label])
-        t5, i5 = sw.sweep_closest(*full, tris.packed, tris.chunk_boxes, tris.super_boxes)
+        t5, i5 = sw.sweep_closest(*full, tris.packed, tris.sweep_boxes, rows=config.tri_count)
         t1, i1 = bt.bvh_closest(*full, *bt_tabs, tcl=bvh_config.bvh_tcl,
                                 depth=bvh_data.tris.bvh_depth)
         bit_t = bool(torch.equal(t5, t1))
@@ -1088,6 +1105,19 @@ def phase_sweep(mesh_bvh, bounds, results):
         require(bit_t and same_hits, f"K5 disagrees with K1 on mesh_env {label} rays")
         details["mesh_env_nobvh"][f"vs_k1_{label}"] = {
             "t_bit_equal": bit_t, "hits": int(hit.sum()), "tied_other_triangle": other_tri}
+    del data, rays
+    # (d) K5/K6 against their full scan (rows = T, all-pass boxes) on every
+    # lane of five ray sets on each table, and the tie across chunks
+    gates = {}
+    for case, tri, _, rows, sets in sweep_scenes():
+        boxes = bt.sweep_boxes(tri)
+        gates[case] = {name: sweep_full_scan_gate(f"{case} {name}", full, tri, boxes, rows)
+                       for name, full in sets.items()}
+        log(f"  K5/K6 {case} against the full scan, every lane of five ray sets: "
+            + ", ".join(f"{k} {v['hits']} hits / {v['occluded']} occluded, 0 off"
+                        for k, v in gates[case].items()))
+    details["full_scan"] = gates
+    details["tie"] = check_sweep_tie()
     k5.update(bounds["sweep_closest"].fields())
     k6.update(bounds["sweep_anyhit"].fields())
     results["kernels"]["sweep_closest"] = k5
@@ -1304,20 +1334,12 @@ def table_bytes(tris) -> dict:
             ("packed", "attrs", "bvh_boxes", "bvh_child", "leaf_start", "inst_w2o")}
 
 
-def phase_big_env(tmp, bounds, results):
-    """Phase 10: big_env at 1920x1080 on K1/K2 at leaf size 32, and its
-    48x48 oracle gate. Returns the run's launches and the 1080p tables
-    (for phase 16's ring rounds, run right after this phase)."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+def load_big_env(tmp):
+    """big_env (``tools/make_big_scene.py`` into ``tmp``) flattened at
+    1920x1080: (data, config, camera, generate s, flatten s, its directory,
+    the scene)."""
     from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
-    from pupiloptixlab_tpu_torch.render.integrator import render
     from pupiloptixlab_tpu_torch.scene import load_scene
-    from pupiloptixlab_tpu_torch.utils.image import read_exr
 
     out_dir = tmp / "big_env"
     t0 = time.perf_counter()
@@ -1329,6 +1351,24 @@ def phase_big_env(tmp, bounds, results):
     data, config = flatten_scene(scene, device=DEV)
     flatten_s = time.perf_counter() - t0
     cam = camera_block_from_scene(scene, device=DEV)
+    return data, config, cam, gen_s, flatten_s, out_dir, scene
+
+
+def phase_big_env(tmp, bounds, results):
+    """Phase 10: big_env at 1920x1080 on K1/K2 at leaf size 32, and its
+    48x48 oracle gate. Returns the run's launches and the 1080p tables
+    (for phase 16's ring rounds, run right after this phase)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene
+    from pupiloptixlab_tpu_torch.render.integrator import render
+    from pupiloptixlab_tpu_torch.utils.image import read_exr
+
+    data, config, cam, gen_s, flatten_s, out_dir, scene = load_big_env(tmp)
     tris = data.tris
     tb = table_bytes(tris)
     log(f"  big_env: generated in {gen_s:.1f} s, loaded and flattened in {flatten_s:.1f} s: "
@@ -1536,13 +1576,32 @@ def inst_visit_counts(data, config, rays) -> dict:
     return out
 
 
-def extra_rays(data, config, cam) -> dict:
+def vertical_rays(lo, hi, width: int, height: int) -> list:
+    """Rays of direction exactly (0, -1, 0) from a width x height grid of
+    origins over the box (lo, hi), above it, as planes."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.render.sampling import MAX_DISTANCE, RAY_OFFSET
+
+    n = width * height
+    xs = torch.linspace(float(lo[0]), float(hi[0]), width, device=DEV)
+    zs = torch.linspace(float(lo[2]), float(hi[2]), height, device=DEV)
+    gz, gx = torch.meshgrid(zs, xs, indexing="ij")
+    ox, oz = gx.reshape(-1).contiguous(), gz.reshape(-1).contiguous()
+    oy = torch.full((n,), float(hi[1]) + 1.0, device=DEV)
+    return [ox, oy, oz, torch.zeros(n, device=DEV), torch.full((n,), -1.0, device=DEV),
+            torch.zeros(n, device=DEV), torch.full((n,), RAY_OFFSET, device=DEV),
+            torch.full((n,), MAX_DISTANCE, device=DEV)]
+
+
+def extra_rays(data, config, cam, box=None) -> dict:
     """Two more 1080p ray sets as planes: the frame's unjittered primary
     rays (generate_rays with zero jitter, as phase 16 (b2) makes them on
     mesh_env), and vertical rays (direction exactly (0, -1, 0)) from a
-    1920 x 1080 grid of origins over the tree's root box, above it: their
-    x and z directions are 0 (on an instanced scene, under an instance's
-    rotation about y, 0 or nearly 0 in object space)."""
+    1920 x 1080 grid of origins over ``box`` (lo, hi), by default the
+    tree's root box, above it: their x and z directions are 0 (on an
+    instanced scene, under an instance's rotation about y, 0 or nearly 0 in
+    object space)."""
     import torch
 
     from pupiloptixlab_tpu_torch.render.camera import generate_rays
@@ -1554,16 +1613,11 @@ def extra_rays(data, config, cam) -> dict:
     tmax = torch.full((n,), MAX_DISTANCE, device=DEV)
     ro, rd = generate_rays(cam, config.width, config.height, zero, zero)
     out = {"unjittered": planes_of((ro, rd, tmin, tmax))}
-    root = data.tris.bvh_boxes[0:8]
-    root = root[root[:, 0] < 1e30]
-    lo, hi = root[:, 0:3].amin(0), root[:, 3:6].amax(0)
-    xs = torch.linspace(float(lo[0]), float(hi[0]), config.width, device=DEV)
-    zs = torch.linspace(float(lo[2]), float(hi[2]), config.height, device=DEV)
-    gz, gx = torch.meshgrid(zs, xs, indexing="ij")
-    ox, oz = gx.reshape(-1).contiguous(), gz.reshape(-1).contiguous()
-    oy = torch.full((n,), float(hi[1]) + 1.0, device=DEV)
-    out["vertical"] = [ox, oy, oz, torch.zeros(n, device=DEV), torch.full((n,), -1.0, device=DEV),
-                       torch.zeros(n, device=DEV), tmin, tmax]
+    if box is None:
+        root = data.tris.bvh_boxes[0:8]
+        root = root[root[:, 0] < 1e30]
+        box = root[:, 0:3].amin(0), root[:, 3:6].amax(0)
+    out["vertical"] = vertical_rays(*box, config.width, config.height)
     return out
 
 
@@ -2652,14 +2706,19 @@ def phase_parallel(tmp, results, k11, bound):
     return launches
 
 
-def phase_ring_rounds(big, results):
+def phase_ring_rounds(big, results, reps: int = 1):
     """Phase 16 (e), run right after phase 10 while big_env's tables
     (``big``) are alive: the ring's rounds at D = 4 in one process on its
     405k rows and 1080p primary rays, both inners against K1 on the whole
-    table."""
+    table; with ``reps`` > 1 each inner's rounds are timed ``reps`` - 1
+    times more (``ms_all_rounds_reps``), and one sweep round of the first
+    rank (``round_ms``, with what it builds each round), its K5 call alone
+    (``kernel_ms``) and the build of one shard's boxes (``boxes_ms``)
+    between CUDA events."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.accel import sweep as sw
     from pupiloptixlab_tpu_torch.parallel import ring_sweep
 
     t_phase = time.perf_counter()
@@ -2692,18 +2751,58 @@ def phase_ring_rounds(big, results):
     def bvh_step(best, sl, s):
         return ring_sweep.bvh_round(*best, sl, ring.shard_tables(s), s, ring)
 
-    def sweep_step(best, sl, s):
-        return ring_sweep.sweep_round(*best, sl, table[s * shard_rows:(s + 1) * shard_rows],
-                                      s * shard_rows, inner="kernel")
+    def shard(s):
+        return table[s * shard_rows:(s + 1) * shard_rows]
+
+    sl0 = [p[:per] for p in full]
+    best0 = (torch.full((per,), 1e16, device=DEV),
+             torch.full((per,), -1, dtype=torch.int32, device=DEV))
+    if hasattr(ring_sweep, "sweep_shard"):  # each rank builds its own shard's boxes once
+        def sweep_rounds():
+            held = [ring_sweep.sweep_shard(shard(s), "kernel") for s in range(RING_SHARDS)]
+            return rounds(lambda best, sl, s: ring_sweep.sweep_round(
+                *best, sl, held[s], s * shard_rows, shard_rows, inner="kernel"))
+        held0 = ring_sweep.sweep_shard(shard(0), "kernel")
+
+        def one_round():
+            return ring_sweep.sweep_round(*best0, sl0, held0, 0, shard_rows, inner="kernel")
+
+        def k5_alone():
+            return sw.sweep_closest(*sl0, *held0, rows=shard_rows)
+
+        def boxes():
+            return ring_sweep.sweep_shard(shard(0), "kernel")
+    else:  # an earlier package (--sweep --package) builds them every round
+        def sweep_rounds():
+            return rounds(lambda best, sl, s: ring_sweep.sweep_round(
+                *best, sl, shard(s), s * shard_rows, inner="kernel"))
+        rows0 = torch.cat([shard(0), shard(0).new_zeros(((-shard_rows) % sw.CHUNK, 12))])
+        boxes0 = ring_sweep._chunk_boxes(rows0, sw.CHUNK)
+        sboxes0 = sw.super_boxes(boxes0)
+
+        def one_round():
+            return ring_sweep.sweep_round(*best0, sl0, shard(0), 0, inner="kernel")
+
+        def k5_alone():
+            return sw.sweep_closest(*sl0, rows0, boxes0, sboxes0)
+
+        def boxes():
+            return sw.super_boxes(ring_sweep._chunk_boxes(rows0, sw.CHUNK))
 
     e = {"shards": RING_SHARDS, "shard_rows": ring.shard_rows, "tcl": ring.tcl,
          "depths": list(ring.depth), "build_s": build_s, "k1_ms": k1_ms}
     hits = int((i1 >= 0).sum())
-    for name, step in (("bvh", bvh_step), ("sweep", sweep_step)):
-        (t_r, i_r), r_ms = host_timed(lambda: rounds(step))
+    for name, run in (("bvh", lambda: rounds(bvh_step)), ("sweep", sweep_rounds)):
+        (t_r, i_r), r_ms = host_timed(run)
         rows = ties_only(full, btris.packed, t1, i_r, i1)
         e[name] = {"ms_all_rounds": r_ms, "t_bit_equal": bool(torch.equal(t_r, t1)),
                    "hits": hits, **rows}
+        if reps > 1:
+            e[name]["ms_all_rounds_reps"] = [host_timed(run)[1] for _ in range(reps - 1)]
+    if reps > 1:
+        e["sweep"]["round_ms"] = cuda_time_ms(one_round, reps=5)
+        e["sweep"]["kernel_ms"] = cuda_time_ms(k5_alone, reps=5)
+        e["sweep"]["boxes_ms"] = cuda_time_ms(boxes, reps=5)
     log(f"  (e) ring rounds at D={RING_SHARDS} on big_env ({btris.packed.shape[0]} rows), "
         f"N={n}: {e}")
     for name in ("bvh", "sweep"):
@@ -3396,6 +3495,264 @@ def main_bvh(label: str) -> int:
     return 0
 
 
+SWEEP_MODE_LANES = 8192  # --sweep: lanes of each 1080p ray set held against the plain sweep
+SOUP_ROWS = (128, 512, 1024, 2560)  # the seeded soups' table rows (make_soup)
+
+
+def sweep_args(tri, chunk_boxes, rows: int) -> tuple:
+    """(tables, keywords) of the sweep wrappers of the package in use:
+    (tri, its sweep_boxes) and ``rows=`` where the package builds that box
+    table; (tri, the chunk boxes, their super-boxes) and nothing for an
+    earlier one (run with --sweep --package), its super-boxes built once
+    here as its flatten built them."""
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+    from pupiloptixlab_tpu_torch.accel import sweep as sw
+
+    if hasattr(bt, "sweep_boxes"):
+        return (tri, bt.sweep_boxes(tri)), {"rows": rows}
+    return (tri, chunk_boxes, sw.super_boxes(chunk_boxes)), {}
+
+
+def live_box(boxes) -> tuple:
+    """(lo, hi) over the chunk boxes that hold a row (lo <= hi)."""
+    real = boxes[boxes[:, 0] <= boxes[:, 3]]
+    return real[:, 0:3].amin(0), real[:, 3:6].amax(0)
+
+
+def sweep_visits(planes, tri, boxes, rows: int, want) -> dict:
+    """The work of K5 per live ray: chunks whose box it enters, chunks it
+    tests, rows it tests and rows below ``rows`` it tests, from the
+    counting launcher ``sweep_closest_visits`` (measurement only: no
+    wrapper, no path launches it), whose (t, row) must equal K5's
+    (``want``)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import sweep as sw
+
+    n = planes[0].shape[0]
+    t = torch.empty(n, device=DEV)
+    i = torch.empty(n, dtype=torch.int32, device=DEV)
+    counts = torch.zeros((n, 4), dtype=torch.int32, device=DEV)
+    rc = kernels.launcher("sweep_closest_visits")(
+        *(p.data_ptr() for p in planes), tri.data_ptr(), boxes.data_ptr(), n,
+        tri.shape[0] // sw.CHUNK, rows, t.data_ptr(), i.data_ptr(), counts.data_ptr(),
+        kernels.stream_ptr(tri.device))
+    kernels.check(rc, "sweep_closest_visits")
+    require(bool(torch.equal(t, want[0]) and torch.equal(i, want[1])),
+            "the counting sweep disagrees with K5")
+    live = planes[7] > planes[6]
+    n_live = max(int(live.sum()), 1)
+    tot = counts[live].to(torch.int64).sum(0).tolist()
+    return {"live": n_live, "entered_per_ray": tot[0] / n_live,
+            "chunks_per_ray": tot[1] / n_live, "rows_per_ray": tot[2] / n_live,
+            "live_rows_per_ray": tot[3] / n_live}
+
+
+def allpass_boxes(boxes):
+    """Boxes that every ray enters (+-1e30), in the shape of a sweep_boxes
+    table: with ``rows=`` the table's row count they make K5/K6 the full
+    scan, by data and not by a flag."""
+    import torch
+
+    return torch.tensor([-1e30, -1e30, -1e30, 1e30, 1e30, 1e30, 0.0, 0.0],
+                        device=boxes.device).expand_as(boxes).contiguous()
+
+
+def sweep_full_scan_gate(label, planes, tri, boxes, rows: int) -> dict:
+    """K5 and K6 on the live rows with their sweep_boxes against the same
+    kernels at rows = T with all-pass boxes (the full scan) on every lane
+    of ``planes``: t bit-equal, rows and flags equal."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import sweep as sw
+
+    ab = allpass_boxes(boxes)
+    t, i = sw.sweep_closest(*planes, tri, boxes, rows=rows)
+    ta, ia = sw.sweep_closest(*planes, tri, ab, rows=tri.shape[0])
+    o = sw.sweep_anyhit(*planes, tri, boxes, rows=rows)
+    oa = sw.sweep_anyhit(*planes, tri, ab, rows=tri.shape[0])
+    rec = {"lanes": planes[0].shape[0], "hits": int((i >= 0).sum()),
+           "occluded": int(o.sum()), "k5_t_off": int((t != ta).sum()),
+           "k5_rows_off": int((i != ia).sum()), "k6_flags_off": int((o != oa).sum())}
+    require(bool(torch.equal(t, ta)) and all(v == 0 for k, v in rec.items()
+                                             if k.endswith("_off")),
+            f"K5/K6 disagree with their full scan on {label}: {rec}")
+    return rec
+
+
+TIE_CASES = {
+    # chunks: (rows holding the tied triangle, the off-path triangle's row)
+    2: ((5, 70), 100),            # one group: table order
+    34: ((5, 2051, 2118), 2152),  # two groups: nearest first, groups and chunks
+}
+
+
+def sweep_tie_case(n_chunks: int):
+    """A table of ``n_chunks`` chunks in which the rows of
+    ``TIE_CASES[n_chunks]`` hold the same triangle T = (0,0,0), (1,0,0),
+    (0,1,0), beside off-path triangles at x = +-20 in chunk 0. One off-path
+    triangle at z = -3 sits in the last tied row's chunk, so the rays, from
+    z = -5 along +z through T, enter that chunk's box (and its group's
+    super-box) at t = 2 and the other tied rows' at t = 5: nearest first,
+    the last tied row is found first. Every tied row hits at t = 5; K5 must
+    return row 5, as the plain sweep does. Returns (planes, tri, its
+    sweep_boxes, live rows)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    def tri(x, z):
+        return torch.tensor([x, 0.0, z, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+
+    tied, off = TIE_CASES[n_chunks]
+    packed = torch.zeros((n_chunks * 64, 12))
+    for row in tied:
+        packed[row, 0:9] = tri(0.0, 0.0)
+    packed[2, 0:9] = tri(-20.0, 0.0)
+    packed[9, 0:9] = tri(20.0, 0.0)
+    packed[off, 0:9] = tri(2.5, -3.0)
+    g = torch.linspace(0.05, 0.45, 32)
+    gx, gy = [a.reshape(-1).contiguous() for a in torch.meshgrid(g, g, indexing="ij")]
+    n = gx.shape[0]
+    planes = [gx, gy, torch.full((n,), -5.0), torch.zeros(n), torch.zeros(n), torch.ones(n),
+              torch.full((n,), 1e-3), torch.full((n,), 1e16)]
+    packed = packed.to(DEV)
+    return [p.to(DEV) for p in planes], packed, bt.sweep_boxes(packed), off + 1
+
+
+def check_sweep_tie() -> dict:
+    """K5 on each sweep_tie_case: the lowest row of a tie across chunks (2
+    chunks, table order) and across groups and chunks (34 chunks, nearest
+    first), t equal to the plain sweep's; K6 occludes every lane."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel import sweep as sw
+
+    out = {}
+    for n_chunks in TIE_CASES:
+        planes, tri, boxes, live = sweep_tie_case(n_chunks)
+        t, i = sw.sweep_closest(*planes, tri, boxes, rows=live)
+        tp, ip = sw.plain_sweep_closest(*planes, tri)
+        occ = sw.sweep_anyhit(*planes, tri, boxes, rows=live)
+        tie = {"lanes": planes[0].shape[0], "rows": sorted(set(i.tolist())),
+               "plain_rows": sorted(set(ip.tolist())),
+               "t_equal_plain": bool(torch.equal(t, tp)), "occluded": int(occ.sum())}
+        log(f"  sweep tie across {n_chunks} chunks: {tie}")
+        require(tie["rows"] == [5] and tie["plain_rows"] == [5] and tie["t_equal_plain"]
+                and tie["occluded"] == tie["lanes"],
+                f"K5 must keep the lowest row of a tie across {n_chunks} chunks")
+        out[f"chunks_{n_chunks}"] = tie
+    return out
+
+
+def sweep_case(label, tri, chunk_boxes, rows: int, sets, lanes, out) -> None:
+    """--sweep on one table: K5 and K6 on each ray set, against the plain
+    sweep on ``lanes``, device time apart from issue time (split_time_ms
+    around the wrappers, which read no fault flag), the work of a ray
+    (sweep_visits) where the package has the counting launcher, and the
+    full-scan gate where its wrappers take ``rows=``."""
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import sweep as sw
+
+    tabs, kw = sweep_args(tri, chunk_boxes, rows)
+    n_chunks = tri.shape[0] // sw.CHUNK
+    rec = {"rows": tri.shape[0], "live_rows": rows, "chunks": n_chunks,
+           "groups": sw.group_count(n_chunks), "sets": {}}
+    for name, full in sets.items():
+        t5, i5 = sw.sweep_closest(*full, *tabs, **kw)
+        occ = sw.sweep_anyhit(*full, *tabs, **kw)
+        sub = [p[lanes] for p in full]
+        t_p, i_p = sw.plain_sweep_closest(*sub, tri)
+        occ_p = sw.plain_sweep_anyhit(*sub, tri)
+        off = {"k5_t_off": int((t5[lanes] != t_p).sum()),
+               "k5_rows_off": int((i5[lanes] != i_p).sum()),
+               "k6_flags_off": int((occ[lanes] != occ_p).sum())}
+        require(all(v == 0 for v in off.values()),
+                f"--sweep {label} {name}: K5/K6 disagree with the plain sweep: {off}")
+        k5_dev, k5_issue = split_time_ms(lambda: sw.sweep_closest(*full, *tabs, **kw), reps=5)
+        k6_dev, k6_issue = split_time_ms(lambda: sw.sweep_anyhit(*full, *tabs, **kw), reps=5)
+        s = {"hits": int((i5 >= 0).sum()), "occluded": int(occ.sum()), **off,
+             "k5_device_ms": k5_dev, "k5_issue_ms": k5_issue,
+             "k6_device_ms": k6_dev, "k6_issue_ms": k6_issue}
+        if kw:
+            if "sweep_closest_visits" in kernels.KERNELS:
+                s["visits"] = sweep_visits(full, *tabs, rows, (t5, i5))
+            s["full_scan"] = sweep_full_scan_gate(f"{label} {name}", full, *tabs, rows)
+        log(f"  {label} {name}: {s}")
+        rec["sets"][name] = s
+    out[label] = rec
+
+
+def sweep_scenes():
+    """The tables of --sweep and of phase 5's full-scan gates, one at a time,
+    as (label, tri, chunk boxes, live rows, ray sets as planes): oracle_mat's
+    own table, the seeded soups of ``SOUP_ROWS`` rows in its stage under its
+    rays, and mesh_env flattened under PUPIL_NO_BVH; the ray sets are the
+    first bounce's primary, bounce and shadow rays, the unjittered primary
+    rays and vertical rays over the table's live box, all at 1920x1080."""
+    data, config, cam = load_tables(ORACLE_MAT, *FILM, DEV)
+    require(config.bvh_nodes == 0, "oracle_mat must take the chunk sweep")
+    rays = main_path_rays(data, config, cam)
+    sets = {k: planes_of(rays[k]) for k in ("primary", "bounce", "shadow")}
+    sets.update(extra_rays(data, config, cam, box=live_box(data.tris.chunk_boxes)))
+    yield "oracle_mat", data.tris.packed, data.tris.chunk_boxes, config.tri_count, sets
+    del data, rays
+    for rows in SOUP_ROWS:
+        tri, boxes, live = make_soup(rows, DEV)
+        soup_sets = {**sets, "vertical": vertical_rays(*live_box(boxes), *FILM)}
+        yield f"soup_{rows}", tri, boxes, live, soup_sets
+    del sets, soup_sets
+    data, config, cam = load_tables(MESH_ENV, *FILM, DEV, no_bvh=True)
+    require(config.bvh_nodes == 0 and data.tris.chunk_boxes.shape[0] == 321,
+            "mesh_env under PUPIL_NO_BVH must take the 321-chunk sweep")
+    rays = main_path_rays(data, config, cam)
+    sets = {k: planes_of(rays[k]) for k in ("primary", "bounce", "shadow")}
+    sets.update(extra_rays(data, config, cam, box=live_box(data.tris.chunk_boxes)))
+    yield "mesh_env_nobvh", data.tris.packed, data.tris.chunk_boxes, config.tri_count, sets
+
+
+def main_sweep(label: str) -> int:
+    """``--sweep``: only the K5/K6 checks, on every table of sweep_scenes
+    (oracle_mat, the soups of ``SOUP_ROWS`` rows, mesh_env under
+    PUPIL_NO_BVH) at 1080p with five ray sets each (sweep_case), the ties
+    across chunks and groups where the wrappers take ``rows=``, and the
+    ring's rounds on big_env (phase 16 (e), timed four times). With ``--package
+    DIR`` the package is imported from DIR, so that a parent tree's kernels
+    run under this script's timing in the same call. Prints the card's
+    line, then the results as one JSON line (with the ptxas register lines
+    of sweep.cu)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    log(f"[sweep] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "package": str(Path(kernels.__file__).parent), "label": label,
+                     "registers": [ln.strip() for ln in kernels.BUILD_LOG.get("sweep", "")
+                                   .splitlines() if "registers" in ln or "spill" in ln
+                                   or "entry function" in ln]}
+    lanes = pick_lanes(FILM[0] * FILM[1], DEV)[:SWEEP_MODE_LANES]
+    with torch.inference_mode():
+        for case, tri, boxes, rows, sets in sweep_scenes():
+            sweep_case(case, tri, boxes, rows, sets, lanes, results)
+            torch.cuda.empty_cache()
+        if hasattr(bt, "sweep_boxes"):
+            results["tie"] = check_sweep_tie()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            data, config, cam = load_big_env(Path(tmp))[:3]
+            phase_ring_rounds((data, config, cam), results, reps=4)
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def kernels_line(results, runs) -> list:
     """Each kernel's launches over the runs of the main paths it is on (each
     run had the counts set to 0 just before and read just after): the paths
@@ -3420,14 +3777,17 @@ def kernels_line(results, runs) -> list:
 def cli() -> int:
     """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
     K3/K4 alone (main_tables); ``--inst LABEL [--package DIR]``: K7/K8 alone
-    (main_inst); either with the package imported from DIR."""
+    (main_inst); ``--bvh``: K1/K2/K11 alone (main_bvh); ``--sweep``: K5/K6
+    alone (main_sweep); each with the package imported from DIR."""
     args = sys.argv[1:]
     if not args:
         return main()
-    modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh}
+    modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh,
+             "--sweep": main_sweep}
     if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
-        print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL] "
+        print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL | "
+              "--sweep LABEL] "
               "[--package DIR]",
               file=sys.stderr)
         return 2

@@ -62,7 +62,14 @@ import weakref
 import torch
 
 from pupiloptixlab_tpu_torch import kernels
-from pupiloptixlab_tpu_torch.accel.sweep import _DET_EPS, _PAIR_BUDGET, MAX_DISTANCE, mt_hit_t
+from pupiloptixlab_tpu_torch.accel.sweep import (
+    _DET_EPS,
+    _PAIR_BUDGET,
+    CHUNK,
+    GROUP,
+    MAX_DISTANCE,
+    mt_hit_t,
+)
 from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_anyhit as plain_anyhit
 from pupiloptixlab_tpu_torch.accel.sweep import plain_sweep_closest as plain_closest
 
@@ -500,15 +507,27 @@ def _live_rows(p):
     return (p[:, 3:6] != 0).any(1) & (p[:, 6:9] != 0).any(1)
 
 
-def _group_boxes(verts, live, gr: int, extra_pad: float, device):
-    """(G, 8) float32 boxes [lox loy loz hix hiy hiz 0 0] over the vertices
-    (G * gr, 3, 3) float64 of live rows, ``gr`` consecutive rows a group,
-    widened on every axis by ``SUBLEAF_PAD`` times the box's largest
-    |coordinate| plus ``extra_pad`` and rounded outward to float32; a
-    group without a live row gets the never-box."""
+def _tight_bounds(verts, live, gr: int):
+    """(lo, hi, some) of groups of ``gr`` consecutive rows: the float64
+    bounds (G, 3) of the vertices (G * gr, 3, 3) of their live rows (+-inf
+    without one) and whether a group holds one (G, 1)."""
     lo = torch.where(live[:, None], verts.amin(1), torch.inf).reshape(-1, gr, 3).amin(1)
     hi = torch.where(live[:, None], verts.amax(1), -torch.inf).reshape(-1, gr, 3).amax(1)
-    some = live.reshape(-1, gr).any(1)[:, None]
+    return lo, hi, live.reshape(-1, gr).any(1)[:, None]
+
+
+def _group_boxes(verts, live, gr: int, extra_pad, device):
+    """(G, 8) float32 boxes [lox loy loz hix hiy hiz 0 0] over the vertices
+    (G * gr, 3, 3) float64 of live rows, ``gr`` consecutive rows a group,
+    padded by ``_pad_boxes``."""
+    return _pad_boxes(*_tight_bounds(verts, live, gr), extra_pad, device)
+
+
+def _pad_boxes(lo, hi, some, extra_pad, device):
+    """(G, 8) float32 boxes from float64 bounds (G, 3): widened on every
+    axis by ``SUBLEAF_PAD`` times the box's largest |coordinate| plus
+    ``extra_pad`` and rounded outward to float32; a box without a live row
+    (``some`` False) gets the never-box."""
     pad = SUBLEAF_PAD * torch.maximum(lo.abs(), hi.abs()).amax(1, keepdim=True) + extra_pad
     lo, hi = lo - pad, hi + pad
     lo32, hi32 = lo.to(torch.float32), hi.to(torch.float32)
@@ -650,6 +669,47 @@ def baked_subleaf_boxes(packed, rows, tcl: int):
     base = torch.arange(p.shape[0], device=p.device) // tcl * tcl
     grouped = base + rows.to(torch.int64)  # table row of each slot, in group order
     return _group_boxes(verts[grouped], live[grouped], gr, SCENE_PAD * extent, packed.device)
+
+
+def sweep_boxes(packed):
+    """The chunk sweep's box table (K5/K6, csrc/sweep.cu) on ``packed``'s
+    device: (C + G, 8) float32 boxes [lox loy loz hix hiy hiz 0 0], the C =
+    T / ``CHUNK`` chunk boxes, then, when C > ``GROUP``, the G = ceil(C /
+    ``GROUP``) super-boxes of ``GROUP`` chunks each (none otherwise). Each
+    bounds its live rows' vertices in float64 and is padded as the baked
+    sub-leaf groups are (``baked_subleaf_boxes``: ``SUBLEAF_PAD`` of its
+    largest |coordinate| plus ``SCENE_PAD`` of the table's, rounded outward
+    to float32), so that ``group_slab`` never drops a chunk that holds an
+    accepted hit; a box without a live row gets the never-box. The kernels
+    test these boxes as they are; ``tests/test_torch_sweep_rows.py`` holds
+    them on far, face, grazing and zero-direction rays. Nothing here reads
+    the device back (a ring rank builds its shard's on the card)."""
+    t_rows = packed.shape[0]
+    if t_rows == 0 or t_rows % CHUNK:
+        raise ValueError(f"sweep_boxes: {t_rows} rows are not whole chunks of {CHUNK}")
+    p = packed[:, 0:9].to(torch.float64)
+    live = _live_rows(p)
+    verts = _vertices(p)
+    pad = SCENE_PAD * torch.where(live[:, None, None], verts.abs(), 0.0).amax()
+    lo, hi, some = _tight_bounds(verts, live, CHUNK)
+    n_chunks = t_rows // CHUNK
+    if n_chunks > GROUP:  # a group's bounds are its chunks' (none past the last)
+        extra = -n_chunks % GROUP
+        lo = torch.cat([lo, torch.cat([lo, lo.new_full((extra, 3), torch.inf)])
+                        .reshape(-1, GROUP, 3).amin(1)])
+        hi = torch.cat([hi, torch.cat([hi, hi.new_full((extra, 3), -torch.inf)])
+                        .reshape(-1, GROUP, 3).amax(1)])
+        some = torch.cat([some, torch.cat([some, some.new_zeros((extra, 1))])
+                          .reshape(-1, GROUP).any(1)[:, None]])
+    return _pad_boxes(lo, hi, some, pad, packed.device)
+
+
+def sweep_table(packed, bvh_nodes: int):
+    """``TriSoup.sweep_boxes`` for a flattened table: ``sweep_boxes`` on the
+    chunk sweep's route (no tree), a (0, 8) placeholder on a tree's."""
+    if bvh_nodes > 0:
+        return torch.zeros((0, 8), dtype=torch.float32, device=packed.device)
+    return sweep_boxes(packed)
 
 
 def subleaf_table(packed, tcl: int, bvh_nodes: int, instanced: bool):

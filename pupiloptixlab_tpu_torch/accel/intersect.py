@@ -123,8 +123,7 @@ def _tri_closest(ro: Vec3, rd: Vec3, tmin, tmax, scene: SceneData,
                 depth=tris.bvh_depth,
             )
     else:
-        t, idx = sweep_closest(*planes, tris.packed, tris.chunk_boxes,
-                               tris.super_boxes)
+        t, idx = sweep_closest(*planes, tris.packed, tris.sweep_boxes, rows=config.tri_count)
     hit = idx >= 0
     return (
         torch.where(hit, t, MAX_DISTANCE),
@@ -302,8 +301,7 @@ def intersect_any(
                 depth=tris.bvh_depth,
             )
         else:
-            occ = sweep_anyhit(*planes, tris.packed, tris.chunk_boxes,
-                               tris.super_boxes)
+            occ = sweep_anyhit(*planes, tris.packed, tris.sweep_boxes, rows=config.tri_count)
         occluded = occ != 0
         if config.sphere_count > 0:
             _, hit_s = _sphere_tests(ro, rd, scene, tmin, tmax)

@@ -7,11 +7,22 @@ Kernels (csrc/sweep.cu):
   sweep_closest (K5) <- _kernel_grid and _make_kernel
   sweep_anyhit  (K6) <- _kernel_grid_any
 
+The wrappers take ``rows``, the number of rows the flatten gave
+triangles (``config.tri_count`` on the sweep route): every row at or past
+it is all zero and never hit, and the kernels test only the rows below it.
+They also take the table's box table, ``sweep_boxes`` of
+accel/bvh_traverse.py (``TriSoup.sweep_boxes``): padded chunk boxes and,
+above ``GROUP`` chunks, padded super-boxes, built once per table.
 The plain versions are the brute-force sweep over every row with no
-culling; accel/bvh_traverse.py takes them as its own plain versions. The
-kernels return exactly that (t, row) and flag, bit for bit: above 32 chunks they skip chunks and 32-chunk groups whose boxes
-a ray cannot improve in, which changes no lane. The reference pads N to
-its ray tile; the CUDA kernels take any N.
+culling (the yardstick that proves no live row is dropped);
+accel/bvh_traverse.py takes them as its own plain versions. The kernels
+return exactly that (t, row) and flag, bit for bit: from 2 chunks on they
+skip chunks (and above 32 chunks, 32-chunk groups) whose padded boxes a ray
+cannot improve in, and they reject a pair before the division only where
+``mt_pretest`` says it must fail, neither of which changes a lane (save a
+ray nearly in a triangle's plane, whose t no box margin bounds; the BVH
+shares that exception). The reference pads N to its ray tile; the CUDA
+kernels take any N.
 """
 
 from __future__ import annotations
@@ -59,6 +70,27 @@ def mt_hit_t(ox, oy, oz, dx, dy, dz, tmn, tmx, tri_cols):
         & (t > tmn) & (t < tmx)
     )
     return torch.where(ok, t, MAX_DISTANCE)
+
+
+def mt_pretest(ox, oy, oz, dx, dy, dz, tri_cols):
+    """The kernels' test before the IEEE division (csrc/sweep.cu
+    mt_cheap), on broadcast-compatible planes: False where the pair is sure
+    to fail ``mt_hit_t``, True where the full test decides. With s(x) = x
+    with det's sign (u has the sign of s(u_num)): |det| below the epsilon;
+    s(u_num) below -|det| * 2^-100 (u < 0, too far from 0 to underflow to
+    -0.0, which passes u >= 0); s(u_num) above |det| * (1 + 2^-20) (u > 1,
+    so u + v > 1 for every v >= 0). It repeats ``mt_hit_t``'s operations
+    for det and u's numerator."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tri_cols
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    un = (ox - p0x) * pvx + (oy - p0y) * pvy + (oz - p0z) * pvz
+    adet = torch.abs(det)
+    su = torch.where(det < 0.0, -un, un)
+    reject = (su < -(adet * 2.0 ** -100)) | (su > adet * (1.0 + 2.0 ** -20))
+    return (adet >= _DET_EPS) & ~reject
 
 
 def _pair_budget(device) -> int:
@@ -124,30 +156,22 @@ def plain_sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes=None
 
 
 def group_count(n_chunks: int) -> int:
-    """Super-box groups of the culled form; 1 means no culling (up to
-    ``GROUP`` chunks no box is read, as in the reference)."""
+    """Super-box groups of the culled form, as the reference's wrapper
+    counts them; 1 means no super-box (up to ``GROUP`` chunks)."""
     return (n_chunks + GROUP - 1) // GROUP if n_chunks > GROUP else 1
 
 
-def super_boxes(boxes: torch.Tensor) -> torch.Tensor:
-    """(G, 8) boxes over each group of ``GROUP`` chunk boxes, the last group
-    padded with inverted never-hit boxes, as the reference's wrapper builds
-    them (pallas_intersect.py:389-405). They are constant per scene: the
-    flatten builds them once (``TriSoup.super_boxes``)."""
-    n_chunks = boxes.shape[0]
-    n_groups = group_count(n_chunks)
-    pad = n_groups * GROUP - n_chunks
-    if pad:
-        never = boxes.new_tensor([1e30, 1e30, 1e30, -1e30, -1e30, -1e30, 0.0, 0.0])
-        boxes = torch.cat([boxes, never.expand(pad, 8)], dim=0)
-    grp = boxes.reshape(n_groups, GROUP, 8)
-    return torch.cat(
-        [grp[:, :, 0:3].amin(dim=1), grp[:, :, 3:6].amax(dim=1),
-         boxes.new_zeros((n_groups, 2))], dim=1,
-    ).contiguous()
+def _check_rows(name, tri, rows):
+    """``rows`` must be given, an int within [0, T]."""
+    if rows is None:
+        raise ValueError(f"{name}: rows= (the table's live row count) is required")
+    if isinstance(rows, bool) or not isinstance(rows, int):
+        raise ValueError(f"{name}: rows must be an int, got {type(rows).__name__}")
+    if not 0 <= rows <= tri.shape[0]:
+        raise ValueError(f"{name}: rows={rows} outside [0, {tri.shape[0]}]")
 
 
-def _check_args(name, planes, tri, boxes, sboxes):
+def _check_args(name, planes, tri, boxes):
     dev = tri.device
     n = planes[0].shape[0]
     for i, p in enumerate(planes):
@@ -155,8 +179,7 @@ def _check_args(name, planes, tri, boxes, sboxes):
                 or p.shape[0] != n or not p.is_contiguous()):
             raise ValueError(f"{name}: ray plane {i} must be a contiguous (N,) "
                              f"float32 tensor on {dev}")
-    for label, t, width in (("tri", tri, 12), ("chunk_boxes", boxes, 8),
-                            ("super_boxes", sboxes, 8)):
+    for label, t, width in (("tri", tri, 12), ("boxes", boxes, 8)):
         if (t.device != dev or t.dtype != torch.float32 or t.dim() != 2
                 or t.shape[1] != width or not t.is_contiguous()):
             raise ValueError(f"{name}: {label} must be contiguous float32 "
@@ -165,47 +188,46 @@ def _check_args(name, planes, tri, boxes, sboxes):
         raise ValueError(f"{name}: {tri.shape[0]} rows; the table must be a "
                          f"positive multiple of {CHUNK} rows (pad with zero rows)")
     n_chunks = tri.shape[0] // CHUNK
-    if boxes.shape[0] != n_chunks:
-        raise ValueError(f"{name}: {boxes.shape[0]} chunk boxes for {n_chunks} chunks")
-    n_groups = group_count(n_chunks)
-    if n_groups > 1 and sboxes.shape[0] != n_groups:
-        raise ValueError(f"{name}: {sboxes.shape[0]} super-boxes for {n_groups} "
-                         f"groups of {GROUP} chunks")
-    return n, n_chunks, n_groups
+    n_super = group_count(n_chunks) if n_chunks > GROUP else 0
+    if boxes.shape[0] != n_chunks + n_super:
+        raise ValueError(f"{name}: {boxes.shape[0]} boxes; sweep_boxes gives {n_chunks} "
+                         f"chunk boxes and {n_super} super-boxes")
+    return n, n_chunks
 
 
-def _launch(name, planes, tri, boxes, sboxes, outs):
-    if sboxes is None:
-        sboxes = super_boxes(boxes)
-    n, n_chunks, n_groups = _check_args(name, planes, tri, boxes, sboxes)
+def _launch(name, planes, tri, boxes, rows, outs):
+    n, n_chunks = _check_args(name, planes, tri, boxes)
     fn = kernels.launcher(name)
     kernels.LAUNCHES[name] += 1
-    rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), boxes.data_ptr(),
-            sboxes.data_ptr(), n, n_chunks, n_groups,
-            *(o.data_ptr() for o in outs), kernels.stream_ptr(tri.device))
+    rc = fn(*(p.data_ptr() for p in planes), tri.data_ptr(), boxes.data_ptr(), n, n_chunks,
+            rows, *(o.data_ptr() for o in outs), kernels.stream_ptr(tri.device))
     kernels.check(rc, name)
 
 
-def sweep_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes, sboxes=None):
+def sweep_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes, *, rows=None):
     """Closest-hit sweep over ray planes (N,) each; ``tri`` (T, 12) with T a
-    multiple of 64 (padding rows all zero), ``boxes`` (T/64, 8) chunk
-    AABBs, ``sboxes`` their ``super_boxes`` (read above 32 chunks only;
-    built here when not given). Returns (t, row) with (1e16, -1) on a miss."""
+    multiple of 64, ``rows`` (required) the rows below which it holds
+    triangles (every row at or past it all zero), ``boxes`` its
+    ``sweep_boxes`` (accel/bvh_traverse.py). Returns (t, row) with (1e16,
+    -1) on a miss. On the CPU: the brute sweep over every row."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
+    _check_rows("sweep_closest", tri, rows)
     if tri.device.type == "cpu":
         return plain_sweep_closest(*planes, tri, boxes)
     n = rox.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
     i_out = torch.empty(n, dtype=torch.int32, device=tri.device)
-    _launch("sweep_closest", planes, tri, boxes, sboxes, (t_out, i_out))
+    _launch("sweep_closest", planes, tri, boxes, rows, (t_out, i_out))
     return t_out, i_out
 
 
-def sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes, sboxes=None):
-    """Occlusion-only sweep; returns (N,) int32 (1 = occluded)."""
+def sweep_anyhit(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri, boxes, *, rows=None):
+    """Occlusion-only sweep (arguments as ``sweep_closest``); returns (N,)
+    int32 (1 = occluded)."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
+    _check_rows("sweep_anyhit", tri, rows)
     if tri.device.type == "cpu":
         return plain_sweep_anyhit(*planes, tri, boxes)
     occ = torch.empty(rox.shape[0], dtype=torch.int32, device=tri.device)
-    _launch("sweep_anyhit", planes, tri, boxes, sboxes, (occ,))
+    _launch("sweep_anyhit", planes, tri, boxes, rows, (occ,))
     return occ

@@ -181,12 +181,6 @@ enum : int { kErrVisitCap = 1, kErrStack = 2, kErrLeafGrid = 4 };
 
 constexpr int kGroups = 8;  // sub-leaf groups of a leaf (baked and unique leaves)
 
-// The relative slack s of a baked group box's slab test (2^-13; the plain
-// mirror is accel/bvh_traverse.py group_slab).
-constexpr float kSlack = 1.0f / 8192.0f;
-constexpr float kSlackLo = 1.0f - kSlack;
-constexpr float kSlackHi = 1.0f + kSlack;
-
 // Leaf tables of an instanced scene (unused by the baked form).
 struct InstTables {
   const int* leaf_start;  // (L,) first unique row of each world leaf
@@ -303,44 +297,6 @@ __device__ __forceinline__ unsigned test_children(const float4* __restrict__ box
     ok |= (unsigned)slab_box(b[2 * k], b[2 * k + 1], r, tfar, &tn[k]) << k;
   }
   return ok;
-}
-
-// The slab test of a baked group box. The entry and exit t of the axes
-// with a nonzero direction component are widened by the relative slack s
-// before their clamps (tn * (1 - s) where tn >= 0, tn * (1 + s) below; tf
-// the other way). An axis with a zero component bounds nothing, and the
-// box fails when the origin lies outside its span widened by s times the
-// distance the other axes give (max(|tn|, |tf|) times the direction's
-// largest component): Moller-Trumbore's rounding grows with the origin's
-// distance, on that axis as on the others. A point box at 1e30 (the
-// never-box) still fails: its entry t exceeds every tmax.
-__device__ __forceinline__ bool group_slab(const float4 lo, const float4 hi, const Ray& r,
-                                           float tfar, float* tn_out) {
-  float tx0 = (lo.x - r.ox) * r.ix;
-  float ty0 = (lo.y - r.oy) * r.iy;
-  float tz0 = (lo.z - r.oz) * r.iz;
-  float tx1 = (lo.w - r.ox) * r.ix;
-  float ty1 = (hi.x - r.oy) * r.iy;
-  float tz1 = (hi.y - r.oz) * r.iz;
-  if (r.axis0) {
-    if (r.dx == 0.0f) { tx0 = -CUDART_INF_F; tx1 = CUDART_INF_F; }
-    if (r.dy == 0.0f) { ty0 = -CUDART_INF_F; ty1 = CUDART_INF_F; }
-    if (r.dz == 0.0f) { tz0 = -CUDART_INF_F; tz1 = CUDART_INF_F; }
-  }
-  float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-  bool outside = false;
-  if (r.axis0) {
-    const float dmax = fmaxf(fmaxf(fabsf(r.dx), fabsf(r.dy)), fabsf(r.dz));
-    const float m = kSlack * fmaxf(fabsf(tn), fabsf(tf)) * dmax;
-    outside = (r.dx == 0.0f && (r.ox < lo.x - m || r.ox > lo.w + m)) ||
-              (r.dy == 0.0f && (r.oy < lo.y - m || r.oy > hi.x + m)) ||
-              (r.dz == 0.0f && (r.oz < lo.z - m || r.oz > hi.y + m));
-  }
-  tn = fmaxf(tn * (tn >= 0.0f ? kSlackLo : kSlackHi), r.tmn);
-  tf = fminf(tf * (tf >= 0.0f ? kSlackHi : kSlackLo), tfar);
-  *tn_out = tn;
-  return !outside && tn <= tf;
 }
 
 // A baked leaf's sub-leaf data: its kTcl order bytes as kTcl / 4 words

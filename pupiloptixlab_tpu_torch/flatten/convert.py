@@ -17,8 +17,7 @@ from dataclasses import fields
 import numpy as np
 
 from pupiloptixlab_tpu_torch.accel.bvh import bvh_depth
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import subleaf_table
-from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import subleaf_table, sweep_table
 from pupiloptixlab_tpu_torch.device import resolve_device
 from pupiloptixlab_tpu_torch.flatten.flatten import _t
 from pupiloptixlab_tpu_torch.flatten.types import (
@@ -44,7 +43,7 @@ _GROUPS = {
 
 
 # TriSoup fields made here, not carried (the sub-leaf table is the port's own)
-_DERIVED = ("bvh_depth", "super_boxes", "subleaf_boxes", "subleaf_rows")
+_DERIVED = ("bvh_depth", "sweep_boxes", "subleaf_boxes", "subleaf_rows")
 
 
 def _table(cls, leaves: dict, device):
@@ -62,7 +61,7 @@ def scene_from_arrays(tree: dict, config: RenderConfig, device=None) -> SceneDat
     packed = parts["tris"]["packed"]
     rows, boxes = subleaf_table(packed, config.bvh_tcl, config.bvh_nodes, config.instanced)
     parts["tris"] = TriSoup(**parts["tris"], bvh_depth=depth,
-                            super_boxes=super_boxes(parts["tris"]["chunk_boxes"]),
+                            sweep_boxes=sweep_table(packed, config.bvh_nodes),
                             subleaf_boxes=boxes, subleaf_rows=rows)
     for g, cls in _GROUPS.items():
         if g != "tris":

@@ -41,8 +41,7 @@ from pupiloptixlab_tpu_torch.accel.bvh import (
     bvh_depth,
     pick_leaf_size,
 )
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import subleaf_table
-from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import subleaf_table, sweep_table
 from pupiloptixlab_tpu_torch.flatten.types import (
     N_SLOTS,
     SLOT_ALPHA,
@@ -878,7 +877,7 @@ def flatten_scene(
         tris = TriSoup(
             packed=packed_t,
             chunk_boxes=chunk_boxes,
-            super_boxes=super_boxes(chunk_boxes),
+            sweep_boxes=sweep_table(packed_t, bvh_nodes),
             attrs=_t(attrs, device=device),
             mat_id=torch.zeros(packed.shape[0], dtype=torch.int32, device=device),
             emitter_id=_t(attrs[:, TRI_EMITTER].astype(np.int32), device=device),
@@ -901,7 +900,7 @@ def flatten_scene(
         tris = TriSoup(
             packed=packed_t,
             chunk_boxes=chunk_boxes,
-            super_boxes=super_boxes(chunk_boxes),
+            sweep_boxes=sweep_table(packed_t, bvh_nodes),
             attrs=_t(attrs, device=device),
             mat_id=_t(attrs[:, TRI_MAT].astype(np.int32), device=device),
             emitter_id=_t(attrs[:, TRI_EMITTER].astype(np.int32), device=device),

@@ -32,8 +32,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import baked_subleaf_boxes
-from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import baked_subleaf_boxes, sweep_boxes
 from pupiloptixlab_tpu_torch.flatten.types import (
     EM_AREA,
     EM_RADIUS,
@@ -279,13 +278,15 @@ def _refit_device(
     # the sub-leaf groups keep their rows; their boxes follow the rows
     subleaf_boxes = (baked_subleaf_boxes(packed, tris.subleaf_rows, tcl)
                      if tris.subleaf_rows.shape[0] == t_pad else tris.subleaf_boxes)
+    # and so do the chunk sweep's (a tree's tables hold a placeholder)
+    sweep = sweep_boxes(packed) if tris.sweep_boxes.shape[0] else tris.sweep_boxes
 
     new_tris = replace(
         tris,
         packed=packed,
         attrs=attrs,
         chunk_boxes=chunk_boxes,
-        super_boxes=super_boxes(chunk_boxes),
+        sweep_boxes=sweep,
         bvh_boxes=bvh_boxes,
         subleaf_boxes=subleaf_boxes,
     )

@@ -110,7 +110,11 @@ class MaterialTable:
 @dataclass
 class TriSoup:
     """Triangle table and BVH node tables (8-wide, accel/bvh.py).
-    ``super_boxes`` is derived from ``chunk_boxes`` once, for the culled sweep.
+    ``sweep_boxes`` is the port's own box table of the chunk sweep (K5/K6),
+    derived from ``packed`` once (accel/bvh_traverse.py ``sweep_boxes``:
+    padded chunk boxes, then padded super-boxes above 32 chunks); the refit
+    rebuilds it from the moved rows. A tree's tables hold a (0, 8)
+    placeholder.
     ``bvh_depth`` is the tree depth (root = 1), recorded at flatten time
     so the traversal kernels can check their per-thread stack bound.
 
@@ -146,7 +150,7 @@ class TriSoup:
     leaf_inst: torch.Tensor    # (L,) i32 instance per world leaf
     inst_w2o: torch.Tensor     # (I, 12) f32 world->object 3x4 row-major
     inst_packed: torch.Tensor  # (I, INST_COLS) f32 shading row
-    super_boxes: torch.Tensor  # (G, 8) over groups of 32 chunk boxes (accel/sweep.py)
+    sweep_boxes: torch.Tensor  # (T/64 + G, 8) the sweep's padded boxes; (0, 8) with a tree
     subleaf_boxes: torch.Tensor  # (T/tcl*8, 8) group boxes: world (K1/K2/K11) or object (K7/K8)
     subleaf_rows: torch.Tensor   # (T,) u8 leaf-local row order (K1/K2/K11); (1,) otherwise
     bvh_depth: int = 0

@@ -69,9 +69,11 @@ KERNELS = {
                       [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]),
     "count_less": ("gather", "launch_count_less", [_P, _I, _I, _I, _P, _P, _I, _P, _P]),
     "sweep_closest": ("sweep", "launch_sweep_closest",
-                      [_P] * 8 + [_P, _P, _P, _I, _I, _I, _P, _P, _P]),
+                      [_P] * 8 + [_P, _P, _I, _I, _I, _P, _P, _P]),
+    "sweep_closest_visits": ("sweep", "launch_sweep_closest_visits",
+                             [_P] * 8 + [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
     "sweep_anyhit": ("sweep", "launch_sweep_anyhit",
-                     [_P] * 8 + [_P, _P, _P, _I, _I, _I, _P, _P]),
+                     [_P] * 8 + [_P, _P, _I, _I, _I, _P, _P]),
     "atrous_iter": ("atrous", "launch_atrous_iter",
                     [_P] * 4 + [_I] * 5 + [_F, _F, _I, _F, _P]),
 }

@@ -15,14 +15,16 @@ O(T / D) rows on each rank and one full table of traffic a query.
 Two forms, as in the reference:
 * ``ring_closest``: each round sweeps the held rows, through the plain
   brute sweep (``inner="plain"``, the reference's jnp inner) or K5
-  ``sweep_closest`` with chunk boxes built from the held rows each round
-  (``inner="kernel"``, the reference's Pallas inner).
+  ``sweep_closest`` (``inner="kernel"``, the reference's Pallas inner)
+  over the shard's ``sweep_boxes``, which each rank builds once for its own
+  shard and rotates with it (the reference builds chunk boxes each round).
 * ``ring_closest_bvh``: each shard carries its own 8-wide BVH and sub-leaf
   table (``build_ring_bvh``), and each round runs K1 ``bvh_closest`` over
   the held shard's tree.
 
 One round (test the held shard, merge by strict t < best t, map shard rows
-to global rows) is ``sweep_round`` / ``bvh_round``; the distributed loops
+to global rows) is ``sweep_round`` / ``bvh_round`` (a shard as held:
+``sweep_shard`` / ``RingBvh.shard_tables``); the distributed loops
 call them, and a single process can call them over D shards to simulate
 D ranks. Rays are this rank's own slab: (3, n) origin and direction
 component rows and (n,) intervals; results are this rank's (t, row), row
@@ -40,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from pupiloptixlab_tpu_torch.accel.bvh import BvhArrays, build_bvh, bvh_depth, pick_leaf_size
-from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_closest, make_baked_subleaf
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_closest, make_baked_subleaf, sweep_boxes
 from pupiloptixlab_tpu_torch.accel.sweep import CHUNK, MAX_DISTANCE, plain_sweep_closest, sweep_closest
 from pupiloptixlab_tpu_torch.parallel.sharding import check_group
 
@@ -186,33 +188,30 @@ def bvh_round(best_t, best_i, planes, held, shard: int, ring: RingBvh):
     return _merge(best_t, best_i, t, glob)
 
 
-def _chunk_boxes(rows: torch.Tensor, tc: int) -> torch.Tensor:
-    """(T, 12) rows -> (T / tc, 8) chunk boxes [min xyz, max xyz, 0, 0] over
-    the vertices p0, p0 + e1, p0 + e2 of each row; all-zero padding rows
-    give a point box at the origin (the test inside rejects them: det 0)."""
-    t = rows.shape[0]
-    g = rows.reshape(t // tc, tc, rows.shape[1])
-    v0 = g[:, :, 0:3]
-    v1 = v0 + g[:, :, 3:6]
-    v2 = v0 + g[:, :, 6:9]
-    lo = torch.minimum(torch.minimum(v0, v1), v2).amin(dim=1)
-    hi = torch.maximum(torch.maximum(v0, v1), v2).amax(dim=1)
-    return torch.cat([lo, hi, rows.new_zeros((t // tc, 2))], dim=1).contiguous()
+def sweep_shard(rows: torch.Tensor, inner: str = "plain") -> tuple:
+    """What a rank holds of a shard's ``rows`` and rotates with it: (rows,)
+    for the plain inner; for K5 the rows padded with zero rows to whole
+    64-row chunks and their ``sweep_boxes``, built once a shard."""
+    if inner == "plain":
+        return (rows.contiguous(),)
+    if inner != "kernel":
+        raise ValueError(f"ring_closest: inner must be 'plain' or 'kernel', not {inner!r}")
+    pad = (-rows.shape[0]) % CHUNK
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))], 0)
+    rows = rows.contiguous()
+    return rows, sweep_boxes(rows)
 
 
-def sweep_round(best_t, best_i, planes, rows, base: int, inner: str = "plain"):
-    """One round of ``ring_closest``: the held ``rows`` (global rows
-    ``base`` onward) swept by the plain brute sweep or by K5 over chunk
-    boxes built from them (rows padded with zero rows to whole 64-row
-    chunks), merged by strict t < best_t."""
+def sweep_round(best_t, best_i, planes, held, base: int, n_rows: int, inner: str = "plain"):
+    """One round of ``ring_closest``: the held shard (``sweep_shard``; its
+    ``n_rows`` rows are global rows ``base`` onward) swept by the plain
+    brute sweep or by K5 (which tests those rows, not the zero rows
+    ``sweep_shard`` appends), merged by strict t < best_t."""
     if inner == "kernel":
-        pad = (-rows.shape[0]) % CHUNK
-        if pad:
-            rows = torch.cat([rows, rows.new_zeros((pad, rows.shape[1]))], 0)
-        rows = rows.contiguous()
-        t, p = sweep_closest(*planes, rows, _chunk_boxes(rows, CHUNK))
+        t, p = sweep_closest(*planes, *held, rows=n_rows)
     elif inner == "plain":
-        t, p = plain_sweep_closest(*planes, rows)
+        t, p = plain_sweep_closest(*planes, held[0])
     else:
         raise ValueError(f"ring_closest: inner must be 'plain' or 'kernel', not {inner!r}")
     return _merge(best_t, best_i, t, torch.where(p >= 0, p + base, p))
@@ -232,15 +231,16 @@ def ring_closest(group, ro_flat, rd_flat, tmin, tmax, shard: torch.Tensor,
                  shard_rows: int, inner: str = "plain"):
     """Closest hit of this rank's rays over the whole row-sharded table:
     ``shard`` is this rank's (shard_rows, 12) rows (``shard_tris``); D
-    rounds of ``sweep_round``, the rows rotating around the ring."""
+    rounds of ``sweep_round``, the shard (with K5 its boxes, built once
+    here) rotating around the ring."""
     check_group(group, tmin.device)
     my, d = dist.get_rank(group), dist.get_world_size(group)
     planes = _planes(ro_flat, rd_flat, tmin, tmax)
     best_t, best_i = _misses(tmin.shape[0], tmin.device)
-    held = (shard.contiguous(),)
+    held = sweep_shard(shard, inner)
     for k in range(d):
         base = ((my + k) % d) * shard_rows
-        best_t, best_i = sweep_round(best_t, best_i, planes, held[0], base, inner)
+        best_t, best_i = sweep_round(best_t, best_i, planes, held, base, shard_rows, inner)
         if k + 1 < d:
             held = _rotate(held, group)
     return best_t, best_i

@@ -125,9 +125,8 @@ def test_baked_refit_equals_reference(which):
     got, records, want, _, _ = _refit_both(DATA / "mesh_env.xml", which, MESH_ENV_EDIT[which])
     assert isinstance(records, RefitData) and records.depth > 0
     _assert_tables_equal(got, want)
-    # the chunk-sweep route's second box level follows the refit chunk boxes
-    from pupiloptixlab_tpu_torch.accel.sweep import super_boxes
-    assert torch.equal(got.tris.super_boxes, super_boxes(got.tris.chunk_boxes))
+    # a tree's tables hold the chunk sweep's placeholder, which the refit keeps
+    assert tuple(got.tris.sweep_boxes.shape) == (0, 8)
 
 
 @pytest.mark.parametrize("which", EDITS)

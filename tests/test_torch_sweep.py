@@ -32,6 +32,7 @@ from pupiloptixlab_tpu.accel.pallas_intersect import sweep_triangles, sweep_tria
 from pupiloptixlab_tpu.render.vec import Vec3 as JVec3
 from pupiloptixlab_tpu_torch import kernels
 from pupiloptixlab_tpu_torch.accel import sweep as sw
+from pupiloptixlab_tpu_torch.accel.bvh_traverse import sweep_boxes
 from pupiloptixlab_tpu_torch.accel.intersect import _mt_planes
 from pupiloptixlab_tpu_torch.render.vec import Vec3 as TVec3
 
@@ -79,8 +80,9 @@ def _rays(seed, n):
 def _port(planes, packed, boxes):
     p = [torch.from_numpy(np.ascontiguousarray(a)) for a in planes]
     tri, bx = torch.from_numpy(packed), torch.from_numpy(boxes)
-    t, i = sw.sweep_closest(*p, tri, bx)
-    occ = sw.sweep_anyhit(*p, tri, bx)
+    rows = tri.shape[0] - 5  # _soup's live rows
+    t, i = sw.sweep_closest(*p, tri, bx, rows=rows)
+    occ = sw.sweep_anyhit(*p, tri, bx, rows=rows)
     assert t.dtype == torch.float32 and i.dtype == torch.int32 and occ.dtype == torch.int32
     return t.numpy(), i.numpy(), occ.numpy()
 
@@ -159,22 +161,39 @@ def test_ties_go_to_the_lowest_row():
 
 @pytest.mark.parametrize("n_chunks,groups", [(1, 1), (32, 1), (33, 2), (321, 11)])
 def test_super_boxes_match_the_reference_wrapper(n_chunks, groups):
-    """group_count and super_boxes against the reference wrapper's own
-    arithmetic (pallas_intersect.py:389-405), never-hit padding included."""
+    """group_count against the reference wrapper's, and the super-boxes of
+    ``sweep_boxes`` (the port's padded ones, after the chunk boxes) hold
+    the reference wrapper's own (pallas_intersect.py:389-405, never-hit
+    padding included) over the flatten's chunk boxes of a seeded table."""
     assert sw.group_count(n_chunks) == groups
-    if groups == 1:
-        return
     r = np.random.default_rng(n_chunks)
+    rows = n_chunks * 64
+    packed = np.zeros((rows, 12), np.float32)
+    live = rows - 37
+    packed[:live, 0:3] = r.random((live, 3), dtype=np.float32) * 8 - 4
+    packed[:live, 3:9] = r.random((live, 6), dtype=np.float32) - 0.5
+    got = sweep_boxes(torch.from_numpy(packed)).numpy()
+    if groups == 1:
+        assert got.shape == (n_chunks, 8)
+        return
+    assert got.shape == (n_chunks + groups, 8)
+    v = np.stack([packed[:live, 0:3], packed[:live, 0:3] + packed[:live, 3:6],
+                  packed[:live, 0:3] + packed[:live, 6:9]])
+    lo = np.full((rows, 3), 1e30, np.float32)
+    hi = np.full((rows, 3), -1e30, np.float32)
+    lo[:live], hi[:live] = v.min(0), v.max(0)
     boxes = np.zeros((n_chunks, 8), np.float32)
-    boxes[:, 0:3] = r.random((n_chunks, 3), dtype=np.float32)
-    boxes[:, 3:6] = boxes[:, 0:3] + r.random((n_chunks, 3), dtype=np.float32)
-    got = sw.super_boxes(torch.from_numpy(boxes)).numpy()
+    boxes[:, 0:3] = lo.reshape(-1, 64, 3).min(1)
+    boxes[:, 3:6] = hi.reshape(-1, 64, 3).max(1)
     pad = groups * sw.GROUP - n_chunks
     never = np.tile(np.array([[1e30] * 3 + [-1e30] * 3 + [0, 0]], np.float32), (pad, 1))
     grp = np.concatenate([boxes, never]).reshape(groups, sw.GROUP, 8)
-    want = np.concatenate([grp[:, :, 0:3].min(1), grp[:, :, 3:6].max(1),
-                           np.zeros((groups, 2), np.float32)], 1)
-    np.testing.assert_array_equal(got, want)
+    want = np.concatenate([grp[:, :, 0:3].min(1), grp[:, :, 3:6].max(1)], 1)
+    sup = got[n_chunks:]
+    assert (sup[:, 0:3] <= want[:, 0:3]).all() and (sup[:, 3:6] >= want[:, 3:6]).all()
+    assert (sup[:, 6:8] == 0).all()
+    # padded by 2^-13 of the box's largest |coordinate| and 2^-19 of the table's
+    np.testing.assert_allclose(sup[:, 0:6], want, atol=(2.0 ** -13 + 2.0 ** -19) * 4.5 + 1e-6)
 
 
 def test_arguments_are_checked():
@@ -182,16 +201,16 @@ def test_arguments_are_checked():
     tri = torch.zeros((64, 12), device="meta")
     boxes = torch.zeros((1, 8), device="meta")
     with pytest.raises(ValueError, match="multiple of 64"):
-        sw.sweep_closest(*p, torch.zeros((60, 12), device="meta"), boxes)
-    with pytest.raises(ValueError, match="chunk boxes"):
-        sw.sweep_anyhit(*p, tri, torch.zeros((2, 8), device="meta"))
+        sw.sweep_closest(*p, torch.zeros((60, 12), device="meta"), boxes, rows=60)
+    with pytest.raises(ValueError, match="1 chunk boxes and 0 super-boxes"):
+        sw.sweep_anyhit(*p, tri, torch.zeros((2, 8), device="meta"), rows=64)
     with pytest.raises(ValueError, match="ray plane 7"):
-        sw.sweep_closest(*p[:7], torch.zeros(5, device="meta"), tri, boxes)
+        sw.sweep_closest(*p[:7], torch.zeros(5, device="meta"), tri, boxes, rows=64)
     with pytest.raises(ValueError, match="tri must be"):
-        sw.sweep_closest(*p, tri.to(torch.float64), boxes)
+        sw.sweep_closest(*p, tri.to(torch.float64), boxes, rows=64)
     big = torch.zeros((40 * 64, 12), device="meta")
-    with pytest.raises(ValueError, match="1 super-boxes for 2 groups"):
-        sw.sweep_closest(*p, big, torch.zeros((40, 8), device="meta"), boxes)
+    with pytest.raises(ValueError, match="40 chunk boxes and 2 super-boxes"):
+        sw.sweep_closest(*p, big, torch.zeros((41, 8), device="meta"), rows=2555)
 
 
 def test_device_tensors_never_take_the_plain_version(monkeypatch):
@@ -208,10 +227,10 @@ def test_device_tensors_never_take_the_plain_version(monkeypatch):
     boxes = torch.zeros((1, 8), device="meta")
     for fn, name in ((sw.sweep_closest, "sweep_closest"), (sw.sweep_anyhit, "sweep_anyhit")):
         with pytest.raises(RuntimeError, match=f"launch {name}"):
-            fn(*p, tri, boxes)
+            fn(*p, tri, boxes, rows=64)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     planes = [torch.from_numpy(a) for a in _rays(1, 64)]
     packed, bx = (torch.from_numpy(a) for a in _soup(128))
-    sw.sweep_closest(*planes, packed, bx)
-    sw.sweep_anyhit(*planes, packed, bx)
+    sw.sweep_closest(*planes, packed, bx, rows=123)
+    sw.sweep_anyhit(*planes, packed, bx, rows=123)
     assert all(v == 0 for v in kernels.LAUNCHES.values())  # the CPU path launches nothing
