@@ -6,10 +6,12 @@ K3 and K4 alone:                  python3 chip_smoke.py --tables LABEL [--packag
 K7 and K8 alone:                  python3 chip_smoke.py --inst LABEL [--package DIR]
 K1, K2 and K11 alone:             python3 chip_smoke.py --bvh LABEL [--package DIR]
 K5 and K6 alone:                  python3 chip_smoke.py --sweep LABEL [--package DIR]
+K10 alone:                        python3 chip_smoke.py --mt LABEL [--package DIR]
+K9 alone:                         python3 chip_smoke.py --atrous LABEL [--package DIR]
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
-timing in the same call; main_tables, main_inst, main_bvh and main_sweep
-say what they run.)
+timing in the same call; main_tables, main_inst, main_bvh, main_sweep,
+main_mt and main_atrous say what they run.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -159,7 +161,12 @@ Phases (each fails the run on its first fault; nothing is caught):
               t within those limits plus the linear form's cancellation term,
               compare_mt_k1); render_frame 1 warm-up + 2 timed with the
               counts reset before and read after (K10 4 a frame, K1 none); the
-              frame against K1's at equal seed (phase 7's limits)
+              frame against K1's at equal seed (phase 7's limits); K10 with its
+              tensor-core filter against the same kernel with every leaf on the
+              CUDA cores (check_mt_tc_gate) on all 2,073,600 lanes of the primary,
+              bounce, shadow, unjittered and vertical rays (t bit-equal, rows
+              equal), with the share of its leaf tests on the tensor cores
+              (non-zero on the primary rays)
  16. parallel (a) K1 and K2 on the seeded deep soup of scene/deep_soup.py (20,000
               triangles, a depth-11 tree whose walk may need 78 stack entries)
               at 65,536 rays, equal to their plain versions (rows equal, t
@@ -2357,7 +2364,9 @@ def phase_mt32(results, k10, bound):
     """mesh_env flattened under PUPIL_TCL=32 at 1920x1080 with PUPIL_MXU_MT:
     K10 against its plain version on 65,536-lane subsets and against K1 on
     the same tables at full N; render_frame with the counts set to 0 just
-    before and read just after; the frame against K1's at equal seed."""
+    before and read just after; the frame against K1's at equal seed. The
+    bound counts one row test a hit (MT_FLOPS_LINEAR), as K1's does,
+    whatever the kernel tests."""
     import torch
 
     from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
@@ -2398,8 +2407,7 @@ def phase_mt32(results, k10, bound):
                                   i_k, t1, i1)
             live = int((full[7] > full[6]).sum())
             b_ms, by = bound.add(nbytes(*full, *tabs, t_k, i_k),
-                                 live * 8 * SLAB_FLOPS
-                                 + int((i_k >= 0).sum()) * config.bvh_tcl * MT_FLOPS_LINEAR)
+                                 live * 8 * SLAB_FLOPS + int((i_k >= 0).sum()) * MT_FLOPS_LINEAR)
             log(f"  K10 {label}: {int(hit.sum())}/{lanes.numel()} hits, row mismatches {mism}, "
                 f"t bit-equal {bit_t}; kernel {ms:.3f} ms at N={n}, plain {plain_ms:.1f} ms "
                 f"at N={lanes.numel()}, bound {b_ms:.4f} ms ({by}); against K1 (tcl 32, "
@@ -2422,6 +2430,7 @@ def phase_mt32(results, k10, bound):
             k10["mismatches"] += mism
         k10.update(bound.fields())
         del rays
+        rec["tc_gate"] = check_mt_tc_gate(data, config, cam)
         launches = phase_frame(data, config, cam, results, label="mesh_env_mt32",
                                path=MT_PATH, absent=("bvh_closest",))
     # the frame against K1's on the same tables at equal seed
@@ -3753,6 +3762,275 @@ def main_sweep(label: str) -> int:
     return 0
 
 
+MT_MODE_SHARES = (2, 4, 8, 12, 16, 20, 24, 28, 32)  # thresholds the share histogram is read at
+MT_TIMED_SHARES = (1, 2, 4, 8, 16, 33)  # --mt: K10 timed at these share thresholds
+MT_EVERY_LEAF = 1  # a share threshold every pending leaf reaches: the path's form
+MT_ALL_CUDA_CORES = 33  # a share threshold no leaf reaches: every leaf on the CUDA cores
+
+
+def ptxas_lines(kernels, stem: str) -> list:
+    """The ptxas register, spill and entry lines of one source's build (empty
+    when this run did not build it)."""
+    return [ln.strip() for ln in kernels.BUILD_LOG.get(stem, "").splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
+
+
+def mt_launch_tables(tr, config) -> tuple:
+    """(tables, scalars after n) of K10's bare launcher for the package in
+    use: the linear-form tables, the tree, then the launcher's ints (a
+    package whose K10 has no tensor-core filter takes (mt_rows, center) and
+    (T, tcl, nodes))."""
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    n_nodes = tr.bvh_axis.shape[0]
+    tree = (tr.bvh_child, tr.bvh_axis, tr.bvh_boxes)
+    if hasattr(bt, "mt_kernel_tables"):
+        return (*bt.mt_kernel_tables(tr.packed), *tree), (tr.packed.shape[0], n_nodes)
+    return (*bt.mt_tables(tr.packed), *tree), (tr.packed.shape[0], config.bvh_tcl, n_nodes)
+
+
+def mt_launch(planes, tr, share_min: int):
+    """(t, row) of one launch of ``bvh_closest_mt_at``, K10 with only the
+    leaves that at least ``share_min`` lanes of a warp share on the tensor
+    cores, the fault flag clear."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+
+    tabs, scal = mt_launch_tables(tr, None)
+    n = planes[0].shape[0]
+    dev = planes[0].device
+    t = torch.empty(n, device=dev)
+    i = torch.empty(n, dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = kernels.launcher("bvh_closest_mt_at")(
+        *(p.data_ptr() for p in planes), *(x.data_ptr() for x in tabs), n, *scal, share_min,
+        t.data_ptr(), i.data_ptr(), err.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "bvh_closest_mt_at")
+    require(int(err.item()) == 0, "bvh_closest_mt_at: traversal fault flag")
+    return t, i
+
+
+def check_mt_tc_gate(data, config, cam) -> dict:
+    """K10 with its tensor-core filter (the wrapper: every pending leaf
+    through it) against the same kernel with every leaf on the CUDA cores
+    (``bvh_closest_mt_at`` at MT_ALL_CUDA_CORES) on all 2,073,600 lanes of the
+    five 1080p ray sets (bvh_ray_sets): t bit-equal, rows equal; and the
+    share of the lane-leaf tests the tensor cores served (mt_visits), which
+    must not be 0 on the primary rays."""
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    tr = data.tris
+    kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+    out = {}
+    for name, full in bvh_ray_sets(data, config, cam).items():
+        t_k, i_k = bt.bvh_closest_mt(*full, tr.packed, tr.bvh_child, tr.bvh_axis,
+                                     tr.bvh_boxes, **kw)
+        t_c, i_c = mt_launch(full, tr, MT_ALL_CUDA_CORES)
+        vis = mt_visits(full, tr, config, MT_EVERY_LEAF)
+        rec = {"t_off": int((t_k != t_c).sum()), "rows_off": int((i_k != i_c).sum()),
+               "hits": int((i_k >= 0).sum()), "tc_share": vis["tc_share"],
+               "leaves_per_ray": vis["leaves_per_ray"],
+               "rows_tested_per_ray": vis["rows_tested_per_ray"],
+               "rows_passed_per_tc_test": vis["tc_rows_passed"] / max(vis["tc_lane_tests"], 1)}
+        log(f"  K10 tensor cores against CUDA cores alone, {name}: {rec}")
+        require(rec["t_off"] == 0 and rec["rows_off"] == 0,
+                f"K10 {name}: the tensor-core filter changed a result: {rec}")
+        out[name] = rec
+    require(out["primary"]["tc_share"] > 0,
+            "K10: no leaf test of the primary rays went to the tensor cores")
+    return out
+
+
+def mt_visits(planes, tr, config, share_min: int) -> dict:
+    """K10's walk counted on whole count tiles of ``planes`` by the
+    measurement launcher ``bvh_closest_mt_visits`` at the share threshold
+    ``share_min`` (lanes of a warp that must share a pending leaf for it
+    to be tested on the tensor cores; 33: none is), its (t, row) held
+    against K10's: per live ray the pops and leaves, per warp leaf step the
+    lanes with a pending leaf, the histogram of pending leaves by the lanes
+    sharing them, and the share of lane-leaf tests at each threshold of
+    ``MT_MODE_SHARES``; where the kernel has the tensor-core filter, the
+    products, the lane-leaf tests they served and the rows that passed the
+    filter."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    n = planes[0].shape[0] // bt.COUNT_TILE * bt.COUNT_TILE
+    full = [p[:n].contiguous() for p in planes]
+    t_k, i_k = bt.bvh_closest_mt(*full, tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes,
+                                 tcl=bt.MT_TCL, depth=tr.bvh_depth)
+    tabs = mt_launch_tables(tr, config)[0]
+    dev = full[0].device
+    t = torch.empty(n, device=dev)
+    i = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros((n // bt.COUNT_TILE, 40), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    rc = kernels.launcher("bvh_closest_mt_visits")(
+        *(p.data_ptr() for p in full), *(x.data_ptr() for x in tabs), n, tr.packed.shape[0],
+        tr.bvh_axis.shape[0], share_min, t.data_ptr(), i.data_ptr(), counts.data_ptr(),
+        err.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "bvh_closest_mt_visits")
+    require(int(err.item()) == 0 and torch.equal(t, t_k) and torch.equal(i, i_k),
+            "bvh_closest_mt_visits: the counting walk disagrees with K10")
+    tot = counts.to(torch.int64).sum(dim=0).tolist()
+    hist = tot[8:]
+    lane_tests = sum((c + 1) * h for c, h in enumerate(hist))
+    live = max(int((full[7] > full[6]).sum()), 1)
+    steps = max(tot[2], 1)
+    rec = {"live": live, "hits": int((i_k >= 0).sum()), "share_min": share_min,
+           "pops_per_ray": tot[0] / live, "leaves_per_ray": tot[1] / live,
+           "warp_steps": tot[2], "pending_lanes_per_step": tot[1] / steps,
+           "leaves_per_step": sum(hist) / steps,
+           "tc_products": tot[3], "tc_lane_tests": tot[4], "tc_rows_passed": tot[5],
+           "rows_tested_per_ray": tot[6] / live,
+           "tc_share": tot[4] / max(tot[1], 1),
+           "hist": {c + 1: h for c, h in enumerate(hist) if h},
+           "lane_share_at": {m: sum((c + 1) * h for c, h in enumerate(hist) if c + 1 >= m)
+                             / max(lane_tests, 1) for m in MT_MODE_SHARES},
+           "products_per_step_at": {m: sum(h for c, h in enumerate(hist) if c + 1 >= m) / steps
+                                    for m in MT_MODE_SHARES}}
+    return rec
+
+
+def main_mt(label: str) -> int:
+    """``--mt``: only the K10 checks, on mesh_env flattened under
+    PUPIL_TCL=32 at 1080p with its five ray sets (bvh_ray_sets): K10
+    against the brute linear-form sweep on ``BVH_MODE_LANES`` seeded lanes
+    (rows equal, t bit-equal) and against K1 on the same tables
+    (compare_mt_k1's counts), device and issue time of K10 and of K1 from
+    the bare launchers (split_time_ms), and where the package has the
+    counting launcher, the walk's counts at the shipped threshold and with
+    every leaf on the CUDA cores (mt_visits). With ``--package DIR`` the
+    package is imported from DIR, so that a parent tree's kernels run under
+    this script's timing in the same call. Prints the card's line, then the
+    results as one JSON line (with the ptxas lines of the sources this run
+    built)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.accel import bvh_traverse as bt
+
+    log(f"[mt] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "package": str(Path(kernels.__file__).parent), "label": label,
+                     "registers": {stem: ptxas_lines(kernels, stem)
+                                   for stem in kernels.BUILD_LOG}, "sets": {}}
+    with torch.inference_mode():
+        with pupil_env("PUPIL_TCL", "32"):
+            data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
+        tr = data.tris
+        require(config.bvh_tcl == bt.MT_TCL, "--mt: expected 32-row leaves")
+        kw = dict(tcl=config.bvh_tcl, depth=tr.bvh_depth)
+        tree = (tr.packed, tr.bvh_child, tr.bvh_axis, tr.bvh_boxes)
+        tabs, scal = mt_launch_tables(tr, config)
+        k1_tabs = bvh_tables(tr)
+        k1_scal = (tr.packed.shape[0], config.bvh_tcl, tr.bvh_axis.shape[0])
+        n = config.width * config.height
+        lanes = pick_lanes(n, DEV)[:BVH_MODE_LANES]
+        results.update(rows=tr.packed.shape[0], nodes=config.bvh_nodes, depth=tr.bvh_depth)
+        for name, full in bvh_ray_sets(data, config, cam).items():
+            t_k, i_k = bt.bvh_closest_mt(*full, *tree, **kw)
+            sub = [p[lanes] for p in full]
+            t_p, i_p = bt.plain_closest_mt(*sub, tr.packed)
+            off = {"t_off": int((t_k[lanes] != t_p).sum()),
+                   "rows_off": int((i_k[lanes] != i_p).sum())}
+            require(off["t_off"] == 0 and off["rows_off"] == 0,
+                    f"--mt {label} {name}: K10 disagrees with its plain version: {off}")
+            t1, i1 = bt.bvh_closest(*full, *k1_tabs, **kw)
+            vs_k1 = compare_mt_k1(tr.packed, bt.mt_tables(tr.packed)[1], full, t_k, i_k, t1, i1)
+            dev_ms, issue_ms = bare_device_ms("bvh_closest_mt", full, tabs, (n, *scal),
+                                              (t_k, i_k))
+            k1_dev, _ = bare_device_ms("bvh_closest", full, k1_tabs, (n, *k1_scal), (t1, i1))
+            s = {"hits": int((i_k >= 0).sum()), **off, "device_ms": dev_ms,
+                 "issue_ms": issue_ms, "k1_device_ms": k1_dev,
+                 "vs_k1": {k: v for k, v in vs_k1.items() if k != "t_off_lanes"}}
+            if "bvh_closest_mt_at" in kernels.KERNELS:  # the device time at each share threshold
+                s["device_ms_at"] = {
+                    m: bare_device_ms("bvh_closest_mt_at", full, tabs, (n, *scal, m),
+                                      (t_k, i_k))[0] for m in MT_TIMED_SHARES}
+            if "bvh_closest_mt_visits" in kernels.KERNELS:
+                s["visits"] = mt_visits(full, tr, config, MT_EVERY_LEAF)
+                s["visits_cuda_cores"] = mt_visits(full, tr, config, MT_ALL_CUDA_CORES)
+            log(f"  mt32 {name}: {s}")
+            results["sets"][name] = s
+        del data
+        torch.cuda.empty_cache()
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
+def main_atrous(label: str) -> int:
+    """``--atrous``: only the K9 checks, on bench.py's denoiser inputs at
+    1920x1080 (denoise_inputs), guided and unguided: each of the 5 launches
+    of a denoise (steps 1-16) against its plain version on the same planes
+    (atol 2e-6, rtol 1e-5), its device and issue time apart around the
+    wrapper (split_time_ms; K9's wrapper reads nothing back) and its events
+    time, then the denoise (atrous_denoise_cuda) against the plain filter
+    and timed. With ``--package DIR`` as ``--mt``. Prints the card's line,
+    then the results as one JSON line (with the ptxas lines of the sources
+    this run built)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.denoise import atrous_kernel as tk
+
+    log(f"[atrous] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "package": str(Path(kernels.__file__).parent), "label": label,
+                     "registers": {stem: ptxas_lines(kernels, stem)
+                                   for stem in kernels.BUILD_LOG}}
+    with torch.inference_mode():
+        color, albedo, normal = denoise_inputs(*FILM, DEV)
+        a, nrm = tk.planes_of(albedo), tk.planes_of(normal)
+        for guided in (True, False):
+            flags = dict(use_albedo=guided, use_normal=guided)
+            x = tk.planes_of(color)
+            rec = {"steps": []}
+            for it in range(DENOISE_ITERS):
+                step = 1 << it
+                got = tk.atrous_iter(x, a, nrm, step, **flags)
+                want = tk.atrous_iter_plain(x, a, nrm, step, **flags)
+                err = float((got - want).abs().max())
+                require(bool(torch.allclose(got, want, atol=2e-6, rtol=1e-5)),
+                        f"--atrous {label} step {step}: K9 disagrees with its plain version")
+                dev_ms, issue_ms = split_time_ms(
+                    lambda: tk.atrous_iter(x, a, nrm, step, **flags))
+                ms = cuda_time_ms(lambda: tk.atrous_iter(x, a, nrm, step, **flags), reps=10)
+                rec["steps"].append({"step": step, "max_abs_err": err, "device_ms": dev_ms,
+                                     "issue_ms": issue_ms, "ms": ms})
+                x = want
+            got = tk.atrous_denoise_cuda(color, albedo, normal, **flags)
+            want = plain_denoise(color, albedo, normal, guided)
+            require(bool(torch.allclose(got, want, atol=2e-6, rtol=1e-5)),
+                    f"--atrous {label}: the denoise disagrees with the plain filter")
+            kernels.reset_launches()
+            rec["denoise_ms"] = cuda_time_ms(
+                lambda: tk.atrous_denoise_cuda(color, albedo, normal, **flags), reps=10)
+            rec["launches_per_denoise"] = kernels.LAUNCHES["atrous_iter"] / 11
+            rec["denoise_device_ms"], rec["denoise_issue_ms"] = split_time_ms(
+                lambda: tk.atrous_denoise_cuda(color, albedo, normal, **flags))
+            rec["denoise_max_abs_err"] = float((got - want).abs().max())
+            log(f"  atrous {'guided' if guided else 'unguided'}: {rec}")
+            results["guided" if guided else "unguided"] = rec
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def kernels_line(results, runs) -> list:
     """Each kernel's launches over the runs of the main paths it is on (each
     run had the counts set to 0 just before and read just after): the paths
@@ -3778,16 +4056,17 @@ def cli() -> int:
     """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
     K3/K4 alone (main_tables); ``--inst LABEL [--package DIR]``: K7/K8 alone
     (main_inst); ``--bvh``: K1/K2/K11 alone (main_bvh); ``--sweep``: K5/K6
-    alone (main_sweep); each with the package imported from DIR."""
+    alone (main_sweep); ``--mt``: K10 alone (main_mt); ``--atrous``: K9 alone
+    (main_atrous); each with the package imported from DIR."""
     args = sys.argv[1:]
     if not args:
         return main()
     modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh,
-             "--sweep": main_sweep}
+             "--sweep": main_sweep, "--mt": main_mt, "--atrous": main_atrous}
     if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
         print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL | "
-              "--sweep LABEL] "
+              "--sweep LABEL | --mt LABEL | --atrous LABEL] "
               "[--package DIR]",
               file=sys.stderr)
         return 2

@@ -52,7 +52,15 @@ each row's table columns, summed left to right, and t = (t*det) / det in
 IEEE division. Its plain version (``plain_closest_mt``) is the brute
 linear-form sweep over every row in the same arithmetic, elementwise (not
 through a matrix product, whose summation order is the library's), with
-ties at equal t going to the lowest row; K10 returns exactly that.
+ties at equal t going to the lowest row; K10 returns exactly that. K10
+reads its own tables (``mt_kernel_tables``): the 19 non-zero factors of
+each row (``mt_lean_table``) for its exact test, and each leaf's
+tensor-core operand in fragment order (``mt_frag_table``) for the TF32
+filter that every pending leaf of a warp's leaf step goes through first,
+once for the lanes that share it; the filter only rejects pairs whose
+sign tests must fail
+(``mt_filter_rejects``), and the exact test's 19 products give the 40
+terms' values (``mt_lean_hit_t``).
 """
 
 from __future__ import annotations
@@ -858,27 +866,118 @@ def mt_cols_table(tri, center):
 
 
 def mt_rows_table(tri, center):
-    """The same numbers in the layout K10 reads: (T, 40), row j holding
-    [det(10) | u(10) | v(10) | t(10)] of triangle j, 160 B per row."""
+    """The same numbers by row: (T, 40), row j holding [det(10) | u(10) |
+    v(10) | t(10)] of triangle j, 160 B per row (the plain version's;
+    K10 reads ``mt_lean_table`` and ``mt_frag_table``)."""
     return _mt_linear(tri, center).reshape(tri.shape[0], 40).contiguous()
 
 
-_MT_TABLES: dict[int, tuple] = {}  # id(tri) -> (rows, center), while tri lives
+_MT_TABLES: dict[int, dict] = {}  # id(tri) -> its linear-form tables, while tri lives
+
+
+def _mt_kept(tri) -> dict:
+    """The linear-form tables of one triangle table: its center and rows,
+    made at the table's first query, then K10's lean and frag at the
+    kernel's (``mt_kernel_tables``), all kept beside it until it is freed.
+    Tables are never written in place (a refit builds new ones:
+    flatten/refit.py), so the tensor's identity names its contents."""
+    key = id(tri)
+    kept = _MT_TABLES.get(key)
+    if kept is None:
+        center = mt_center(tri)
+        kept = {"center": center, "rows": mt_rows_table(tri, center)}
+        _MT_TABLES[key] = kept
+        weakref.finalize(tri, _MT_TABLES.pop, key, None)
+    return kept
 
 
 def mt_tables(tri):
-    """(``mt_rows_table``, ``mt_center``) of one triangle table, built at its
-    first closest-hit query and kept beside it until it is freed. Tables
-    are never written in place (a refit builds new ones: flatten/refit.py),
-    so the tensor's identity names its contents."""
-    key = id(tri)
-    hit = _MT_TABLES.get(key)
-    if hit is None:
-        center = mt_center(tri)
-        hit = (mt_rows_table(tri, center), center)
-        _MT_TABLES[key] = hit
-        weakref.finalize(tri, _MT_TABLES.pop, key, None)
-    return hit
+    """(``mt_rows_table``, ``mt_center``) of one triangle table (the plain
+    version's), kept beside it (``_mt_kept``)."""
+    kept = _mt_kept(tri)
+    return kept["rows"], kept["center"]
+
+
+MT_LEAN_COLS = (0, 1, 2, 10, 11, 12, 13, 14, 15, 20, 21, 22, 23, 24, 25, 36, 37, 38, 39)
+MT_TC_ERR = 1.25 * 2.0 ** -10  # the filter's margin per |f[0:6]| |g| (mt_frag_table)
+
+
+def mt_lean_table(rows):
+    """(T, 20): each row's 19 non-zero linear-form factors (``MT_LEAN_COLS``
+    of ``mt_rows_table`` ``rows``: det 0-2, u 0-5, v 0-5, t 6-9) and a
+    zero, 80 B a row; the 21 others are structural zeros of ``_mt_linear``."""
+    out = torch.zeros((rows.shape[0], 20), dtype=torch.float32, device=rows.device)
+    out[:, :19] = rows[:, list(MT_LEAN_COLS)]
+    return out
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: the PTX ``cvt.rna.tf32.f32`` K10 applies to the rays'
+    features. Finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | (bits & torch.tensor(-2 ** 31, dtype=torch.int32))).view(torch.float32)
+
+
+def mt_filter_factors(tri, center):
+    """(q, G): q (T, 3, 8) the TF32 factors of u*det, v*det and w*det =
+    (det - u - v)*det over features 0-7 (w from det, u and v in float64,
+    then rounded), and G (T,) each row's margin factor MT_TC_ERR * (|g_det|
+    + |g_u| + |g_v|), norms over the non-zero features, rounded up to
+    float32. With a ray's rn >= |f[0:6]|, rn * G bounds the distance
+    between a TF32 tensor-core product of q and the FP32 dot K10's exact
+    test computes, for u*det, v*det and w*det alike: the TF32 roundings
+    of both factors (2^-11 each, relative), the products' FP32 sum (within
+    2^-18 of the terms' magnitudes) and the exact test's own roundings
+    (its 10-term dots and det - u - v, 2^-20) come to 2^-10 * 1.006 of
+    sum |f_k| |g_k| <= |f| |g|; G keeps 25% over that."""
+    g = _mt_linear(tri, center).double()  # (T, 4, 10)
+    w = g[:, 0, :8] - g[:, 1, :8] - g[:, 2, :8]
+    q = torch.stack([tf32_round(g[:, 1, :8].float()), tf32_round(g[:, 2, :8].float()),
+                     tf32_round(w.float())], 1)
+    norm = (g[:, 0, :3].norm(dim=1) + g[:, 1, :6].norm(dim=1) + g[:, 2, :6].norm(dim=1))
+    g64 = MT_TC_ERR * norm
+    g32 = g64.float()
+    g32 = torch.where(g32.double() < g64, torch.nextafter(g32, torch.full_like(g32, 3e38)),
+                      g32)
+    return q, g32
+
+
+def mt_frag_table(tri, center):
+    """(T / 32 * 256, 4) float32: K10's tensor-core operand of each 32-row
+    leaf in fragment order, one 16-byte load a lane per entry. For leaf L,
+    block b (rows 8b .. 8b + 7) and lane (g, t) = (lane // 4, lane % 4):
+    entry ((L * 4 + b) * 2 + 0) * 32 + lane = [u(8b + g)[t], u(8b + g)[t + 4],
+    v(8b + g)[t], v(8b + g)[t + 4]] and entry (.. + 1) * 32 + lane =
+    [w(8b + g)[t], w(8b + g)[t + 4], G(8b + 2t), G(8b + 2t + 1)] (q and G of
+    ``mt_filter_factors``): an m16n8k8 B fragment (k = feature, n = row)
+    for each of u, v, w, and the margin factors of the rows whose products
+    lane (g, t) holds."""
+    t_rows = tri.shape[0]
+    q, big_g = mt_filter_factors(tri, center)
+    dev = tri.device
+    lane = torch.arange(32, device=dev)
+    gid, tq = lane // 4, lane % 4
+    leaf = torch.arange(t_rows // MT_TCL, device=dev)[:, None, None]
+    blk = torch.arange(4, device=dev)[None, :, None]
+    row_b = leaf * MT_TCL + 8 * blk + gid  # (L, 4, 32): the B column's row
+    row_g = leaf * MT_TCL + 8 * blk + 2 * tq  # the first of the lane's two rows
+    half0 = torch.stack([q[row_b, 0, tq], q[row_b, 0, tq + 4],
+                         q[row_b, 1, tq], q[row_b, 1, tq + 4]], -1)
+    half1 = torch.stack([q[row_b, 2, tq], q[row_b, 2, tq + 4],
+                         big_g[row_g], big_g[row_g + 1]], -1)
+    return torch.stack([half0, half1], 2).reshape(-1, 4).contiguous()
+
+
+def mt_kernel_tables(tri):
+    """(``mt_lean_table``, ``mt_frag_table``, ``mt_center``) of one triangle
+    table: K10's three tables, kept beside it (``_mt_kept``)."""
+    kept = _mt_kept(tri)
+    if "lean" not in kept:
+        kept["lean"] = mt_lean_table(kept["rows"])
+        kept["frag"] = mt_frag_table(tri, kept["center"])
+    return kept["lean"], kept["frag"], kept["center"]
 
 
 def _mt_features(rox, roy, roz, rdx, rdy, rdz, center):
@@ -905,6 +1004,42 @@ def mt_linear_hit_t(f, tmn, tmx, g):
     ok = ((torch.abs(det) >= _DET_EPS) & (up * det >= 0.0) & (vp * det >= 0.0)
           & ((det - up - vp) * det >= 0.0) & (t > tmn) & (t < tmx))
     return torch.where(ok, t, MAX_DISTANCE)
+
+
+def mt_lean_hit_t(f, tmn, tmx, lean):
+    """``mt_linear_hit_t`` through the 19 non-zero products, as K10 computes
+    it (csrc/bvh_traverse.cu lean_form): ``lean`` the 19 row columns of
+    ``mt_lean_table``, each dot summed left to right over its non-zero
+    terms. Equal to ``mt_linear_hit_t`` on finite features: the terms
+    left out are signed zeros, which change a sum only where it is zero,
+    and then only its sign."""
+    def dot(fi, ci):
+        acc = f[fi[0]] * lean[ci[0]]
+        for a, b in zip(fi[1:], ci[1:]):
+            acc = acc + f[a] * lean[b]
+        return acc
+
+    det = dot((0, 1, 2), (0, 1, 2))
+    up = dot(range(6), range(3, 9))
+    vp = dot(range(6), range(9, 15))
+    tp = dot(range(6, 10), range(15, 19))
+    t = tp / torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
+    ok = ((torch.abs(det) >= _DET_EPS) & (up * det >= 0.0) & (vp * det >= 0.0)
+          & ((det - up - vp) * det >= 0.0) & (t > tmn) & (t < tmx))
+    return torch.where(ok, t, MAX_DISTANCE)
+
+
+def mt_filter_rejects(u, v, w, rn, big_g):
+    """K10's tensor-core filter on broadcast-compatible planes: ``u``, ``v``,
+    ``w`` the products of u*det, v*det and w*det (as the tensor cores give
+    them), ``rn`` the ray's margin factor (|f[0:6]| * (1 + 2^-20) in float32),
+    ``big_g`` the row's (``mt_filter_factors``). A pair is rejected where
+    one value exceeds M and another lies below -M, M = rn * G + 2^-100: a
+    hit needs all three to share det's sign (they sum to det)."""
+    m = (rn.double() * big_g.double() + 2.0 ** -100).float()
+    hi = torch.maximum(torch.maximum(u, v), w)
+    lo = torch.minimum(torch.minimum(u, v), w)
+    return (hi > m) & (lo < -m)
 
 
 def plain_closest_mt(rox, roy, roz, rdx, rdy, rdz, tmin, tmax, tri):
@@ -944,9 +1079,9 @@ def bvh_closest_mt(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
                    tri, bvh_child, bvh_axis, bvh_boxes, tcl: int = MT_TCL, depth: int = 1):
     """Closest-hit traversal with the linear-form leaf test (the reference's
     ``bvh_closest(mxu=True)``); returns (t, idx) with (1e16, -1) on a miss.
-    Needs 32-row leaves; the linear-form table is built from ``tri`` at its
-    first query and kept (``mt_tables``), where the reference builds it on
-    each call."""
+    Needs 32-row leaves; K10's tables are built from ``tri`` at its first
+    query and kept (``mt_kernel_tables``), where the reference builds its
+    table on each call."""
     planes = (rox, roy, roz, rdx, rdy, rdz, tmin, tmax)
     if tcl != MT_TCL or tri.shape[0] % MT_TCL:
         raise ValueError(f"bvh_closest_mt: needs {MT_TCL}-row leaves over a multiple of "
@@ -955,16 +1090,16 @@ def bvh_closest_mt(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         return plain_closest_mt(*planes, tri)
     n, n_nodes = _check_args("bvh_closest_mt", planes, tri, bvh_child, bvh_axis,
                              bvh_boxes, tcl, depth)
-    rows, center = mt_tables(tri)
+    lean, frag, center = mt_kernel_tables(tri)
     t_out = torch.empty(n, dtype=torch.float32, device=tri.device)
     i_out = torch.empty(n, dtype=torch.int32, device=tri.device)
     err = torch.zeros(1, dtype=torch.int32, device=tri.device)
     fn = kernels.launcher("bvh_closest_mt")
     kernels.LAUNCHES["bvh_closest_mt"] += 1
-    rc = fn(*(p.data_ptr() for p in planes), rows.data_ptr(), center.data_ptr(),
-            bvh_child.data_ptr(), bvh_axis.data_ptr(), bvh_boxes.data_ptr(), n,
-            tri.shape[0], tcl, n_nodes, t_out.data_ptr(), i_out.data_ptr(),
-            err.data_ptr(), kernels.stream_ptr(tri.device))
+    rc = fn(*(p.data_ptr() for p in planes), lean.data_ptr(), frag.data_ptr(),
+            center.data_ptr(), bvh_child.data_ptr(), bvh_axis.data_ptr(),
+            bvh_boxes.data_ptr(), n, tri.shape[0], n_nodes, t_out.data_ptr(),
+            i_out.data_ptr(), err.data_ptr(), kernels.stream_ptr(tri.device))
     kernels.check(rc, "bvh_closest_mt")
     _raise_on_flag("bvh_closest_mt", err)
     return t_out, i_out

@@ -19,100 +19,175 @@
 //
 // Design. The TPU kernel DMAs halo'd windows of the 9 planes (HALO_V = 32
 // rows, so steps up to 16) into VMEM stripes and column tiles, because its
-// core reads device memory only through DMA. Here each thread computes one
-// output pixel and reads its 25 taps with CLAMPED indices, which is exactly
-// the reference's edge padding (jnp.pad mode="edge"), at any step: no halo
-// windows, no column tiles. Blocks are 32 x 8 pixels, a warp along a row, so
-// a tap's loads are coalesced along x. Neighbouring threads share most taps,
-// so the 225 loads per pixel are served by L1/L2; one call reads 9 and
-// writes 3 planes (at 1920x1080, 99.5 MB: a bound of 0.030 ms at 3.35 TB/s)
-// and does ~41 float operations per tap (~1,035 per pixel guided, ~0.032 ms
-// at 67 TFLOP/s), so the bound is near the balance point; a shared-memory
-// tile and a fused multi-iteration launch are later work.
+// core reads device memory only through DMA. Here a warp takes 32
+// consecutive output columns and each thread kRows outputs down its column
+// on the step's residue lattice (rows y, y + s, ..., the rows whose taps
+// share the image rows y + k*s): the kRows + 4 tap rows and 5 tap columns
+// it reads serve up to kRows outputs each, so a thread loads 5 (kRows + 4)
+// points for 25 kRows taps (guided, kRows 2: 30 points of 9 planes for 50
+// taps, where one output a thread loaded 25 for 25), and computes each
+// point's luminance once. Loads go through L1 with 32-bit offsets and the
+// 5 clamped column offsets computed once, coalesced along x at any step;
+// clamped indices are exactly the reference's edge padding (jnp.pad
+// mode="edge") at any step. kRows is 4 without guides and 2 with them
+// (their 6 more planes and centre values cost registers: at 4 the guided
+// form held 118 registers and 16 warps an SM and ran at 0.28-0.34 ms a
+// launch, at 2 it holds 64-72). A staged lattice tile in shared memory (a
+// block's 16 x 32 outputs on one residue, its window with a halo of two
+// lattice points) lost on the card: 0.23-0.36 ms guided, its staging
+// reading a 32-byte sector for each 4-byte value at large steps (PERF.md
+// row 13). One call reads 9 and writes 3 planes (at 1920x1080, 99.5 MB: a
+// bound of 0.030 ms at 3.35 TB/s) and does ~41 float operations per tap
+// (~1,035 per pixel guided, ~0.032 ms at 67 TFLOP/s); the time is flat
+// across steps, so issue, not memory, bounds it.
 //
-// Exactness. Every operation follows the plain version (atrous_kernel.py
-// atrous_step, itself _atrous_denoise_jnp of the reference) in its order:
-// dl = ((0.2126*r + 0.7152*g) + 0.0722*b) - lum_c, w = k * exp(..), then
-// w * exp(-da * inv_2sa), then the power; sums run over the taps in row-major
-// order. Built with -fmad=false and IEEE division, so only expf/powf can
-// differ from PyTorch's, by an ulp or so.
+// Arithmetic. The operations follow the plain version (atrous_kernel.py
+// atrous_step, itself _atrous_denoise_jnp of the reference) in its order,
+// with three departures that a float32 model holds within the gate (atol
+// 2e-6, rtol 1e-5) of atrous_step (_atrous_iter_model,
+// tests/test_torch_denoise.py): the albedo distance and the normal dot are
+// chains of fused multiply-adds (__fmaf_rn; the build's -fmad=false fuses
+// nothing by itself), the two edge-stop exponents are summed into one expf
+// (w = k * exp(fma(-da, inv_2sa, -(dl*dl) * inv_2sc))), and the weighted
+// sums accumulate with fused multiply-adds. The luminance is the plain
+// version's ((0.2126*r + 0.7152*g) + 0.0722*b), unfused; the normal power
+// for an integer exponent 1..8 is repeated multiplication in the plain
+// order, predicated instead of looped, else powf; IEEE division for
+// 1 / max(wsum, 1e-8).
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
+constexpr int kTX = 32;     // columns of a block: a warp's lanes
+constexpr int kWarps = 4;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-template <bool kAlbedo, bool kNormal>
-__global__ void __launch_bounds__(kBX * kBY)
+__device__ __forceinline__ float b3(int k) {  // the 5-tap B3 spline, k = 0..4
+  return k == 2 ? 6.0f / 16.0f : (k == 1 || k == 3 ? 4.0f / 16.0f : 1.0f / 16.0f);
+}
+
+// kRows: the outputs a thread computes down its lattice column
+template <bool kAlbedo, bool kNormal, int kRows>
+__global__ void __launch_bounds__(kTX * kWarps)
 atrous_iter_kernel(const float* __restrict__ color, const float* __restrict__ albedo,
                    const float* __restrict__ normal, float* __restrict__ out,
-                   int h, int w, int step, float inv_2sc, float inv_2sa,
+                   int h, int w, int step, int tiles_y, float inv_2sc, float inv_2sa,
                    int npow_int, float n_pow) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t hw = (size_t)h * w;
-  const size_t c = (size_t)y * w + x;
-  const float lum_c = 0.2126f * __ldg(color + c) + 0.7152f * __ldg(color + hw + c) +
-                      0.0722f * __ldg(color + 2 * hw + c);
-  float ar = 0.0f, ag = 0.0f, ab = 0.0f, nr = 0.0f, ng = 0.0f, nb = 0.0f;
-  if constexpr (kAlbedo) {
-    ar = __ldg(albedo + c); ag = __ldg(albedo + hw + c); ab = __ldg(albedo + 2 * hw + c);
-  }
-  if constexpr (kNormal) {
-    nr = __ldg(normal + c); ng = __ldg(normal + hw + c); nb = __ldg(normal + 2 * hw + c);
-  }
-  const float b3[5] = {1.0f / 16.0f, 4.0f / 16.0f, 6.0f / 16.0f, 4.0f / 16.0f,
-                       1.0f / 16.0f};
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, wsum = 0.0f;
+  const int s = step;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * kTX + lane;
+  const int ry = blockIdx.y / tiles_y, ty = blockIdx.y - ry * tiles_y;
+  const int l0 = (ty * kWarps + warp) * kRows;  // this thread's first lattice row
+  const int hw = h * w;
+  int cx[5];
 #pragma unroll
-  for (int iy = -2; iy <= 2; ++iy) {
-    const size_t row = (size_t)clampi(y + iy * step, 0, h - 1) * w;
+  for (int ix = 0; ix < 5; ++ix) cx[ix] = clampi(x + (ix - 2) * s, 0, w - 1);
+  float lum_c[kRows], acr[kRows], acg[kRows], acb[kRows], ncx[kRows], ncy[kRows], ncz[kRows];
 #pragma unroll
-    for (int ix = -2; ix <= 2; ++ix) {
-      const size_t p = row + clampi(x + ix * step, 0, w - 1);
-      const float k = b3[iy + 2] * b3[ix + 2];  // exact: a dyadic product
-      const float sr = __ldg(color + p);
-      const float sg = __ldg(color + hw + p);
-      const float sb = __ldg(color + 2 * hw + p);
-      const float dl = 0.2126f * sr + 0.7152f * sg + 0.0722f * sb - lum_c;
-      float wt = k * expf(-(dl * dl) * inv_2sc);
-      if constexpr (kAlbedo) {
-        const float d0 = __ldg(albedo + p) - ar;
-        const float d1 = __ldg(albedo + hw + p) - ag;
-        const float d2 = __ldg(albedo + 2 * hw + p) - ab;
-        const float da = d0 * d0 + d1 * d1 + d2 * d2;
-        wt = wt * expf(-da * inv_2sa);
-      }
-      if constexpr (kNormal) {
-        const float nd = __ldg(normal + p) * nr + __ldg(normal + hw + p) * ng +
-                         __ldg(normal + 2 * hw + p) * nb;
-        const float ndot = fminf(fmaxf(nd, 0.0f), 1.0f);
-        float pw;
-        if (npow_int > 0) {
-          pw = ndot;
-          for (int q = 1; q < npow_int; ++q) pw = pw * ndot;
-        } else {
-          pw = powf(ndot, n_pow);
-        }
-        wt = wt * pw;
-      }
-      acc_r = acc_r + sr * wt;
-      acc_g = acc_g + sg * wt;
-      acc_b = acc_b + sb * wt;
-      wsum = wsum + wt;
+  for (int r = 0; r < kRows; ++r) {
+    const int o = clampi(ry + (l0 + r) * s, 0, h - 1) * w + cx[2];
+    lum_c[r] = 0.2126f * __ldg(color + o) + 0.7152f * __ldg(color + hw + o) +
+               0.0722f * __ldg(color + 2 * hw + o);
+    if constexpr (kAlbedo) {
+      acr[r] = __ldg(albedo + o); acg[r] = __ldg(albedo + hw + o);
+      acb[r] = __ldg(albedo + 2 * hw + o);
+    }
+    if constexpr (kNormal) {
+      ncx[r] = __ldg(normal + o); ncy[r] = __ldg(normal + hw + o);
+      ncz[r] = __ldg(normal + 2 * hw + o);
     }
   }
-  const float inv_w = 1.0f / fmaxf(wsum, 1e-8f);
-  out[c] = acc_r * inv_w;
-  out[hw + c] = acc_g * inv_w;
-  out[2 * hw + c] = acc_b * inv_w;
+  float acc_r[kRows], acc_g[kRows], acc_b[kRows], wsum[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc_r[r] = acc_g[r] = acc_b[r] = wsum[r] = 0.0f;
+  // lattice rows l0 - 2 .. l0 + kRows + 1; output r takes rows l0 + r - 2 ..
+  // l0 + r + 2 as its taps iy = -2..2, so every output sums its taps in
+  // row-major order
+#pragma unroll
+  for (int wr = 0; wr < kRows + 4; ++wr) {
+    const int row = clampi(ry + (l0 + wr - 2) * s, 0, h - 1) * w;
+#pragma unroll
+    for (int ix = 0; ix < 5; ++ix) {
+      const int o = row + cx[ix];
+      const float sr = __ldg(color + o), sg = __ldg(color + hw + o),
+                  sb = __ldg(color + 2 * hw + o);
+      const float lum = 0.2126f * sr + 0.7152f * sg + 0.0722f * sb;
+      float ar, ag, ab, nx, ny, nz;
+      if constexpr (kAlbedo) {
+        ar = __ldg(albedo + o); ag = __ldg(albedo + hw + o); ab = __ldg(albedo + 2 * hw + o);
+      }
+      if constexpr (kNormal) {
+        nx = __ldg(normal + o); ny = __ldg(normal + hw + o); nz = __ldg(normal + 2 * hw + o);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int iy = wr - r;
+        if (iy < 0 || iy > 4) continue;
+        const float k = b3(iy) * b3(ix);  // exact: a dyadic product
+        const float dl = lum - lum_c[r];
+        float e = -(dl * dl) * inv_2sc;
+        if constexpr (kAlbedo) {
+          const float d0 = ar - acr[r], d1 = ag - acg[r], d2 = ab - acb[r];
+          const float da = __fmaf_rn(d2, d2, __fmaf_rn(d1, d1, d0 * d0));
+          e = __fmaf_rn(-da, inv_2sa, e);
+        }
+        float wt = k * expf(e);
+        if constexpr (kNormal) {
+          const float nd = __fmaf_rn(nz, ncz[r], __fmaf_rn(ny, ncy[r], nx * ncx[r]));
+          const float ndot = fminf(fmaxf(nd, 0.0f), 1.0f);
+          float pw;
+          if (npow_int > 0) {  // ((ndot * ndot) * ndot) ..., predicated, no loop
+            pw = ndot;
+#pragma unroll
+            for (int q = 1; q < 8; ++q) {
+              if (q < npow_int) pw = pw * ndot;
+            }
+          } else {
+            pw = powf(ndot, n_pow);
+          }
+          wt = wt * pw;
+        }
+        acc_r[r] = __fmaf_rn(sr, wt, acc_r[r]);
+        acc_g[r] = __fmaf_rn(sg, wt, acc_g[r]);
+        acc_b[r] = __fmaf_rn(sb, wt, acc_b[r]);
+        wsum[r] = wsum[r] + wt;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int y = ry + (l0 + r) * s;
+    if (x < w && y < h) {
+      const int o = y * w + x;
+      const float inv_w = 1.0f / fmaxf(wsum[r], 1e-8f);
+      out[o] = acc_r[r] * inv_w;
+      out[hw + o] = acc_g[r] * inv_w;
+      out[2 * hw + o] = acc_b[r] * inv_w;
+    }
+  }
+}
+
+template <bool kAlbedo, bool kNormal>
+int launch_form(const float* color, const float* albedo, const float* normal, float* out,
+                int h, int w, int step, float inv_2sc, float inv_2sa, int npow_int,
+                float n_pow, cudaStream_t stream) {
+  constexpr int kRows = kAlbedo || kNormal ? 2 : 4;
+  // lattice rows of the tallest residue, in tiles; residue-major rows of blocks
+  const int tiles_y = ((h + step - 1) / step + kRows * kWarps - 1) / (kRows * kWarps);
+  const long long rows = (long long)step * tiles_y;
+  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // the body's plane offsets are 32-bit
+  if (3LL * h * w > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((w + kTX - 1) / kTX, (unsigned)rows), block(kTX * kWarps);
+  atrous_iter_kernel<kAlbedo, kNormal, kRows><<<grid, block, 0, stream>>>(
+      color, albedo, normal, out, h, w, step, tiles_y, inv_2sc, inv_2sa, npow_int, n_pow);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -122,22 +197,11 @@ extern "C" int launch_atrous_iter(const float* color, const float* albedo,
                                   int step, int use_albedo, int use_normal,
                                   float inv_2sc, float inv_2sa, int npow_int,
                                   float n_pow, cudaStream_t stream) {
-  if (h > 0 && w > 0) {
-    const dim3 block(kBX, kBY);
-    const dim3 grid((w + kBX - 1) / kBX, (h + kBY - 1) / kBY);
-    if (use_albedo && use_normal) {
-      atrous_iter_kernel<true, true><<<grid, block, 0, stream>>>(
-          color, albedo, normal, out, h, w, step, inv_2sc, inv_2sa, npow_int, n_pow);
-    } else if (use_albedo) {
-      atrous_iter_kernel<true, false><<<grid, block, 0, stream>>>(
-          color, albedo, normal, out, h, w, step, inv_2sc, inv_2sa, npow_int, n_pow);
-    } else if (use_normal) {
-      atrous_iter_kernel<false, true><<<grid, block, 0, stream>>>(
-          color, albedo, normal, out, h, w, step, inv_2sc, inv_2sa, npow_int, n_pow);
-    } else {
-      atrous_iter_kernel<false, false><<<grid, block, 0, stream>>>(
-          color, albedo, normal, out, h, w, step, inv_2sc, inv_2sa, npow_int, n_pow);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (h <= 0 || w <= 0 || step <= 0) return static_cast<int>(cudaGetLastError());
+  const auto form = use_albedo ? (use_normal ? launch_form<true, true>
+                                             : launch_form<true, false>)
+                               : (use_normal ? launch_form<false, true>
+                                             : launch_form<false, false>);
+  return form(color, albedo, normal, out, h, w, step, inv_2sc, inv_2sa, npow_int, n_pow,
+              stream);
 }

@@ -16,6 +16,10 @@
 //                              bvh_closest(count_iters=True)
 //   launch_bvh_closest_visits   K1 with four counts a tile, for measurement
 //                              only (no wrapper, no path launches it)
+//   launch_bvh_closest_mt_at, launch_bvh_closest_mt_visits   K10 with some or
+//                              all leaves on the CUDA cores, the latter with
+//                              counts, for measurement and as the filter's
+//                              reference (no wrapper, no path launches them)
 //
 // What it computes: per ray, over the 8-wide BVH of accel/bvh.py (child ids
 // with leaves encoded as -(id+1), one split axis per node, 8 child boxes of
@@ -56,10 +60,10 @@
 // rows in table order) makes the kernels the full leaf scan again, which
 // chip_smoke.py holds them against at full N.
 //
-// Inner nodes of the baked forms: the node's 16 box loads and its 8 child
-// ids are issued before its first slab test, so they are in flight
-// together (the former loop, which the instanced and linear forms keep,
-// tests and pushes child by child, each load behind the previous child's
+// Inner nodes of the baked forms (K10's too): the node's 16 box loads and
+// its 8 child ids are issued before its first slab test, so they are in
+// flight together (the former loop, which the instanced form keeps, tests
+// and pushes child by child, each load behind the previous child's
 // branches); the push order and the prune rule are the former ones.
 // Instanced tables (flatten/instanced.py): the tree is a world tree over
 // per-instance leaf boxes built at one leaf per slot, and a leaf id -(li+1)
@@ -98,10 +102,11 @@
 // the result are K1's, but each row is tested through the reference's
 // linear form (_mt_cols_table): det, u*det, v*det and t*det are 10-term dots
 // of the ray's features f = [d, (o-c) x d, o-c, 1] (c: the mean of the rows'
-// p0, computed once per call) with the row's 40 table floats, laid out
-// [det(10) | u(10) | v(10) | t(10)] per row (accel/bvh_traverse.py
-// mt_rows_table); a hit needs |det| >= 1e-12, u*det*det >= 0, v*det*det >= 0,
-// (det-u-v)*det >= 0 and tmin < t < tmax with t = (t*det) / det.
+// p0, computed once per call) with the row's 40 table floats
+// [det(10) | u(10) | v(10) | t(10)] (accel/bvh_traverse.py mt_rows_table), of
+// which 21 are structural zeros; a hit needs |det| >= 1e-12, u*det*det >= 0,
+// v*det*det >= 0, (det-u-v)*det >= 0 and tmin < t < tmax with
+// t = (t*det) / det.
 //
 // Design. The TPU kernel walks a 1024-ray TILE through the tree together
 // because the TPU has no per-lane control flow; Hopper does, so here each
@@ -113,8 +118,9 @@
 // not in traffic; one stack size keeps one code path for every tree. Children are pushed far-to-near by the ray's own
 // direction sign along the node's split axis (children are stored sorted
 // along it), so the near child pops first. One templated body serves the
-// baked, instanced (kInst) and linear-form (kLinear) closest-hit forms, so
-// all three share the traversal loop.
+// baked and instanced (kInst) closest-hit forms, so both share the
+// traversal loop; K10 walks with K1's node step in a warp-synchronous loop
+// of its own (bvh_closest_mt_kernel).
 //
 // K11's design. The TPU walks a 1024-ray tile in lockstep, so its count is
 // the tile's loop iterations, packed as pops * 65536 + leaves into every
@@ -140,15 +146,28 @@
 // rays for coherence is left to later, measured work.
 //
 // K10's design. The TPU runs the leaf test as one (10,128) x (10,N) product
-// on its matrix unit. Here K1's per-thread walk serves (one leaf-test policy
-// of the same templated body), and each thread sums its 4 dots left to right
-// in FP32 on the CUDA cores: 40 multiplies, 36 adds and one division per row
-// against ~50 operations for the classic test, with 160 B of table per row
-// instead of 48 (the mesh_env table, 3.3 MB, stays in L2). A tensor-core form
-// (a warp-level mma over a leaf's 128 x 10 block, with a split that keeps f32
-// accuracy) is later work. The reference takes an approximate reciprocal and
-// one Newton step for 1/det (pallas_bvh.py:673-675); this kernel divides in
-// IEEE, so t equals the plain linear-form sweep bit for bit.
+// on its matrix unit, for a tile of 1024 rays that walk the tree together.
+// Here each lane walks its own ray (K1's stack and node step), but the
+// walk is warp-synchronous: a lane walks until it takes a leaf off its
+// stack, then the warp meets for a leaf step (bvh_closest_mt_kernel). Each
+// pending leaf goes through the tensor cores once for the lanes that share
+// it: a TF32 m16n8k8 product of the 32 rays'
+// features [d, (o-c) x d] with the leaf's u*det, v*det and w*det columns,
+// kept in fragment order (one 16-byte load a lane per m16n8k8 B pair), is
+// a sound FILTER (tc_filter: a pair whose three values surely differ in
+// sign is rejected, the margin bounding the TF32 product's error from the
+// row's and the ray's norms); the rows that pass (about 2 of 32 on
+// mesh_env's hit leaves) are tested by their lane on the CUDA cores
+// through the linear form's 19 non-zero products
+// (lean_form: 80 B a row instead of 160, and no division for a row that
+// fails its sign tests). t*det, which only the exact test needs, stays off
+// the tensor cores. Both tests are the plain version's arithmetic, so the
+// result is the plain linear-form sweep's bit for bit whichever way a leaf
+// goes, and chip_smoke.py holds the tensor-core path against the same
+// kernel with every leaf on the CUDA cores (launch_bvh_closest_mt_at) on
+// every lane of five ray sets.
+// The reference takes an approximate reciprocal and one Newton step for
+// 1/det (pallas_bvh.py:673-675); this kernel divides in IEEE.
 //
 // Exactness. The slab test (ray_tests.cuh) is exactly _slab8 with tfar
 // clamped by the running best t, and the leaf test is _mt_planes with IEEE
@@ -190,9 +209,10 @@ struct InstTables {
   int n_leaves;
 };
 
-// The linear-form table of K10 (unused by the other forms).
-struct LinearTable {
-  const float4* rows;   // (T, 40) as 10 float4 per row
+// K10's tables (accel/bvh_traverse.py mt_kernel_tables).
+struct MtTables {
+  const float4* lean;   // (T, 20) as 5 float4 per row: the 19 products' factors
+  const float4* frag;   // (T / 32 * 256) float4: per leaf, the warp's B fragments
   const float* center;  // (3,) recentring point
 };
 
@@ -202,33 +222,31 @@ struct SubTable {
   const float4* boxes;   // (T / tcl * kGroups, 8) world group boxes
 };
 
-// The linear-form test of one row: the four dots summed left to right over
-// their 10 terms (unfused under -fmad=false), as mt_linear_hit_t.
-__device__ __forceinline__ bool linear_form(const float4* __restrict__ row,
-                                            const float (&f)[10], const Ray& r,
-                                            float* t_out) {
-  float g[40];
-#pragma unroll
-  for (int q = 0; q < 10; ++q) {
-    const float4 v = __ldg(row + q);
-    g[4 * q] = v.x;
-    g[4 * q + 1] = v.y;
-    g[4 * q + 2] = v.z;
-    g[4 * q + 3] = v.w;
+// The linear-form test of one row through its 19 non-zero products: the
+// table's row is [det 0-2 | u 0-5 | v 0-5 | t 6-9 | 0] (mt_lean_table), and
+// each dot is summed left to right over its non-zero terms (unfused under
+// -fmad=false). The plain version's 40-term dots add the other 21 terms as
+// signed zeros, which change a value only where it is zero, and then only
+// its sign: no decision and no hit's t (tests/test_torch_mt_filter.py). A
+// row that fails the sign tests skips the division.
+__device__ __forceinline__ bool lean_form(const float4* __restrict__ row,
+                                          const float (&f)[10], const Ray& r,
+                                          float* t_out) {
+  const float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2);
+  const float4 q3 = __ldg(row + 3), q4 = __ldg(row + 4);
+  const float det = f[0] * q0.x + f[1] * q0.y + f[2] * q0.z;
+  const float up = f[0] * q0.w + f[1] * q1.x + f[2] * q1.y + f[3] * q1.z + f[4] * q1.w +
+                   f[5] * q2.x;
+  const float vp = f[0] * q2.y + f[1] * q2.z + f[2] * q2.w + f[3] * q3.x + f[4] * q3.y +
+                   f[5] * q3.z;
+  if (!(fabsf(det) >= kDetEps && up * det >= 0.0f && vp * det >= 0.0f &&
+        (det - up - vp) * det >= 0.0f)) {
+    return false;
   }
-  float d[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    float acc = f[0] * g[10 * m];
-#pragma unroll
-    for (int k = 1; k < 10; ++k) acc = acc + f[k] * g[10 * m + k];
-    d[m] = acc;
-  }
-  const float det = d[0], up = d[1], vp = d[2], tp = d[3];
-  const float t = tp / (fabsf(det) < kDetEps ? kDetEps : det);
+  const float tp = f[6] * q3.w + f[7] * q4.x + f[8] * q4.y + f[9] * q4.z;
+  const float t = tp / det;  // |det| >= kDetEps here
   *t_out = t;
-  return fabsf(det) >= kDetEps && up * det >= 0.0f && vp * det >= 0.0f &&
-         (det - up - vp) * det >= 0.0f && t > r.tmn && t < r.tmx;
+  return t > r.tmn && t < r.tmx;
 }
 
 __device__ __forceinline__ int baked_start(int id, int t_rows, int tcl) {
@@ -380,8 +398,8 @@ __device__ __forceinline__ void group_rows(const uint32_t (&ow)[kTcl / 4], int g
 
 // kCount: 0 none; 2 K11's [pops, leaves]; 4 also [groups entered, rows
 // tested] (the measurement launchers). kTcl: the baked form's leaf size
-// (0 for the instanced and linear forms, which take tcl at run time).
-template <bool kInst, bool kLinear, int kCount, int kTcl>
+// (0 for the instanced form, which takes tcl at run time).
+template <bool kInst, int kCount, int kTcl>
 __global__ void __launch_bounds__(kThreads)
 bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ roz, const float* __restrict__ rdx,
@@ -389,7 +407,7 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
                    const float* __restrict__ tmin, const float* __restrict__ tmax,
                    const float4* __restrict__ tri, const int* __restrict__ child,
                    const int* __restrict__ axis, const float4* __restrict__ boxes,
-                   const InstTables it, const LinearTable lt, const SubTable sub, int n,
+                   const InstTables it, const SubTable sub, int n,
                    int t_rows, int tcl, int n_nodes, float* __restrict__ t_out,
                    int* __restrict__ i_out, int* __restrict__ l_out,
                    int* __restrict__ counts, int* __restrict__ err) {
@@ -398,17 +416,6 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
   // n % kTile == 0), so no thread leaves before its block's reduction
   if (i >= n) return;
   const Ray r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
-  float f[10];  // K10: the ray's features [d, (o-c) x d, o-c, 1]
-  if constexpr (kLinear) {
-    const float rcx = r.ox - __ldg(lt.center);
-    const float rcy = r.oy - __ldg(lt.center + 1);
-    const float rcz = r.oz - __ldg(lt.center + 2);
-    f[0] = r.dx; f[1] = r.dy; f[2] = r.dz;
-    f[3] = rcy * r.dz - rcz * r.dy;
-    f[4] = rcz * r.dx - rcx * r.dz;
-    f[5] = rcx * r.dy - rcy * r.dx;
-    f[6] = rcx; f[7] = rcy; f[8] = rcz; f[9] = 1.0f;
-  }
   float tbest = kMaxDistance;
   int ibest = -1;
   int lbest = -1;  // world leaf of the best hit (instanced form)
@@ -481,17 +488,6 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
               }
             }
           }
-        } else if constexpr (kLinear) {
-          const int s = baked_start(id, t_rows, tcl);
-          for (int j = 0; j < tcl; ++j) {
-            float t;
-            const int row = s + j;
-            if (linear_form(lt.rows + (size_t)row * 10, f, r, &t) &&
-                (t < tbest || (t == tbest && row < ibest))) {
-              tbest = t;
-              ibest = row;
-            }
-          }
         } else {
           // the leaf's spatial groups, nearest entry first (the lower group
           // on equal entry), against min(best t, tmax) at the leaf's entry
@@ -553,8 +549,8 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
           }
         }
       } else {
-        // the instanced and linear forms test and push child by child (their
-        // walk holds more registers: the batched loads cost K7 4-10%)
+        // the instanced form tests and pushes child by child (its walk
+        // holds more registers: the batched loads cost K7 4-10%)
         const bool fwd = d >= 0.0f;
         for (int k = 0; k < 8; ++k) {
           const int kk = fwd ? 7 - k : k;
@@ -591,6 +587,294 @@ bvh_closest_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
       }
     }
   }
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMtTcl = 32;          // rows per linear-form leaf
+constexpr int kMtFrag = 256;        // float4 of B fragments and margins a leaf (8 x 32 lanes)
+constexpr int kMtCounts = 8 + 32;   // per count tile: 8 sums, then the share histogram
+constexpr float kGuard = 0x1p-100f; // absolute slack of every filter margin
+// blocks an SM K10 is compiled for: at most 96 registers (128 without the
+// cap, 4 blocks) with a few spills, 5-7% faster on primary, bounce and
+// shadow rays
+constexpr int kMtBlocks = 5;
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as mt_frag_table rounds the table's side (tf32_round).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d = A (16 x 8, TF32, row-major fragment a) x B (8 x 8, TF32, column
+// fragment b0 b1), summed in FP32 on the tensor cores; all 32 lanes take part.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)), "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// The tensor-core filter of one leaf (first row ls) for the whole warp: the
+// rows of the leaf that may hit this lane's ray. For each of the leaf's 32
+// rows and the warp's 32 rays, u*det, v*det and w*det = (det - u - v)*det
+// come from one product of the rays' features [d, (o-c) x d, 0, 0]
+// (fragments a, built once a call) with the leaf's fragments (mt_frag_table:
+// 4 blocks of 8 rows, each 3 n-tiles u, v, w, and a margin factor G a row),
+// 2 m-tiles of 16 rays x 12 n-tiles: 24 mma, 12 where only one m-tile's rays
+// need the leaf (need: the lanes whose pending leaf it is). A hit needs the
+// three to share det's sign, and u + v + w = det, so a pair whose three
+// values surely differ in sign cannot hit: it is rejected where some value
+// exceeds M and another lies below -M, M = rn * G + 2^-100 (rn: the ray's
+// |f[0:6]|, rounded up; G: 1.25 * 2^-10 * (|g_det| + |g_u| + |g_v|) of the
+// row, rounded up), a bound on the distance between the product (TF32
+// inputs, FP32 sums) and the FP32 values the exact test computes. Lane
+// (g, t) holds rays 16 mt + g (+ 8) against rows 8 b + 2t (+ 1); the quad's
+// bits are ORed and each lane takes its own ray's 32-bit mask.
+__device__ __forceinline__ unsigned tc_filter(const float4* __restrict__ frag, int ls,
+                                              unsigned need, const uint32_t (&a)[2][4],
+                                              const float (&rn)[2][2], int lane) {
+  const float4* fp = frag + (size_t)(ls / kMtTcl) * kMtFrag + lane;
+  float4 q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) q[k] = __ldg(fp + 32 * k);
+  const int t = lane & 3;
+  unsigned part[2][2] = {{0u, 0u}, {0u, 0u}};
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (!((need >> (16 * mt)) & 0xffffu)) continue;  // no ray of this m-tile needs it
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float4 x = q[2 * b], y = q[2 * b + 1];
+      float du[4], dv[4], dw[4];
+      mma_tf32(du, a[mt], x.x, x.y);
+      mma_tf32(dv, a[mt], x.z, x.w);
+      mma_tf32(dw, a[mt], y.x, y.y);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int h = p >> 1, c = p & 1;
+        const float m = __fmaf_rn(rn[mt][h], c ? y.w : y.z, kGuard);
+        const float hi = fmaxf(fmaxf(du[p], dv[p]), dw[p]);
+        const float lo = fminf(fminf(du[p], dv[p]), dw[p]);
+        if (!(hi > m && lo < -m)) part[mt][h] |= 1u << (8 * b + 2 * t + c);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    unsigned& v = part[k >> 1][k & 1];
+    v |= __shfl_xor_sync(kFull, v, 1);
+    v |= __shfl_xor_sync(kFull, v, 2);
+  }
+  const int src = 4 * (lane & 7);
+  const unsigned m0 = __shfl_sync(kFull, part[0][0], src);
+  const unsigned m1 = __shfl_sync(kFull, part[0][1], src);
+  const unsigned m2 = __shfl_sync(kFull, part[1][0], src);
+  const unsigned m3 = __shfl_sync(kFull, part[1][1], src);
+  const int k = lane >> 3;  // this lane's ray: m-tile k >> 1, row half k & 1
+  return k == 0 ? m0 : (k == 1 ? m1 : (k == 2 ? m2 : m3));
+}
+
+// K10. Each lane walks its own ray with K1's stack and node loop (the
+// node's loads in flight together, far child pushed first) until it takes
+// a leaf off its stack or its stack is empty; then the warp meets for one
+// leaf step. The lanes' pending leaves are grouped (__match_any_sync): a
+// leaf goes through the tensor-core filter once for the lanes that hold it
+// (tc_filter), and each of them tests the rows that pass, in row order.
+// kEvery false (measurement and reference launchers only): a leaf goes
+// through the filter only where at least share_min lanes hold it, and
+// every other pending leaf is tested by its lane alone, all 32 rows (33:
+// every leaf on the CUDA cores). Both tests are lean_form, so the result is
+// the plain version's bit for bit either way. kCount: per 1024-ray tile
+// [pops, leaves, leaf steps,
+// tensor-core products, lane-leaf tests they served, rows that passed the
+// filter for those lanes, rows tested exactly, 0], then from slot 8 the
+// histogram of a step's pending leaves by the lanes sharing them (slot
+// 8 + c - 1: leaves shared by c lanes).
+template <int kCount, bool kEvery>
+__global__ void __launch_bounds__(kThreads, kMtBlocks)
+bvh_closest_mt_kernel(const float* __restrict__ rox, const float* __restrict__ roy,
+                      const float* __restrict__ roz, const float* __restrict__ rdx,
+                      const float* __restrict__ rdy, const float* __restrict__ rdz,
+                      const float* __restrict__ tmin, const float* __restrict__ tmax,
+                      const MtTables mt, const int* __restrict__ child,
+                      const int* __restrict__ axis, const float4* __restrict__ boxes, int n,
+                      int t_rows, int n_nodes, int share_min, float* __restrict__ t_out,
+                      int* __restrict__ i_out, int* __restrict__ counts,
+                      int* __restrict__ err) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // lanes past n walk nothing but take part in the warp's leaf steps
+  const bool have = i < n;
+  Ray r{};
+  r.tmn = 1.0f;
+  if (have) r = load_ray(i, rox, roy, roz, rdx, rdy, rdz, tmin, tmax);
+  float f[10];  // the ray's features [d, (o-c) x d, o-c, 1], as _mt_features
+  {
+    const float rcx = r.ox - __ldg(mt.center);
+    const float rcy = r.oy - __ldg(mt.center + 1);
+    const float rcz = r.oz - __ldg(mt.center + 2);
+    f[0] = r.dx; f[1] = r.dy; f[2] = r.dz;
+    f[3] = rcy * r.dz - rcz * r.dy;
+    f[4] = rcz * r.dx - rcx * r.dz;
+    f[5] = rcx * r.dy - rcy * r.dx;
+    f[6] = rcx; f[7] = rcy; f[8] = rcz; f[9] = 1.0f;
+  }
+  // the warp's A fragments (rays x features 0-7, features 6 and 7 zero) and
+  // the margin factors rn of the 4 rays whose products this lane holds
+  uint32_t a[2][4];
+  float rn[2][2];
+  {
+    float ss = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) ss = ss + f[k] * f[k];
+    const float own_rn = sqrtf(ss) * (1.0f + 0x1p-20f);
+    uint32_t ft[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) ft[k] = to_tf32(f[k]);
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int src = 16 * m + 8 * hh + g;
+        uint32_t x[6];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) x[k] = __shfl_sync(kFull, ft[k], src);
+        a[m][hh] = t == 0 ? x[0] : (t == 1 ? x[1] : (t == 2 ? x[2] : x[3]));
+        a[m][2 + hh] = t == 0 ? x[4] : (t == 1 ? x[5] : 0u);
+        rn[m][hh] = __shfl_sync(kFull, own_rn, src);
+      }
+    }
+  }
+  float tbest = kMaxDistance;
+  int ibest = -1;
+  int pops = 0, leaves = 0, steps = 0, products = 0, tc_lanes = 0, passed = 0, rows = 0;
+  __shared__ int hist[kCount > 0 ? 32 : 1];
+  if constexpr (kCount > 0) {
+    if (threadIdx.x < 32) hist[threadIdx.x] = 0;
+    __syncthreads();
+  }
+  int stack[kStack];
+  float stack_tn[kStack];
+  int sp = 0;
+  if (have && r.tmx > r.tmn) {
+    stack[0] = 0;
+    stack_tn[0] = r.tmn;
+    sp = 1;
+  }
+  int visits = n_nodes * 8 + 1;
+  for (;;) {
+    int s = -1;  // the first row of this lane's pending leaf
+    while (sp > 0) {
+      if (--visits < 0) { atomicOr(err, kErrVisitCap); sp = 0; break; }
+      --sp;
+      const int id = stack[sp];
+      if constexpr (kCount > 0) pops += id >= 0;
+      if (stack_tn[sp] > tbest) continue;
+      if (id < 0) {
+        s = baked_start(id, t_rows, kMtTcl);
+        break;
+      }
+      const int ax = __ldg(axis + id);
+      const float d = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
+      float tn[8];
+      int ch[8];
+      const unsigned ok = test_children(boxes, child, id, r, fminf(tbest, r.tmx), tn, ch);
+      if (sp + __popc(ok) > kStack) { atomicOr(err, kErrStack); sp = 0; break; }
+      if (d >= 0.0f) {
+#pragma unroll
+        for (int k = 7; k >= 0; --k) {
+          if ((ok >> k) & 1u) { stack[sp] = ch[k]; stack_tn[sp] = tn[k]; ++sp; }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if ((ok >> k) & 1u) { stack[sp] = ch[k]; stack_tn[sp] = tn[k]; ++sp; }
+        }
+      }
+    }
+    if (!__ballot_sync(kFull, s >= 0)) break;
+    const unsigned peers = __match_any_sync(kFull, s);
+    const bool tc = s >= 0 && (kEvery || __popc(peers) >= share_min);
+    if constexpr (kCount > 0) {
+      steps += lane == 0;
+      if (s >= 0) {
+        ++leaves;
+        if (lane == __ffs(peers) - 1) atomicAdd(&hist[__popc(peers) - 1], 1);
+      }
+    }
+    // the shared leaves, one product each for the whole warp
+    unsigned lead = __ballot_sync(kFull, tc && lane == __ffs(peers) - 1);
+    while (lead) {
+      const int src = __ffs(lead) - 1;
+      lead &= lead - 1;
+      const int ls = __shfl_sync(kFull, s, src);
+      const unsigned need = __shfl_sync(kFull, peers, src);
+      const unsigned pass = tc_filter(mt.frag, ls, need, a, rn, lane);
+      if constexpr (kCount > 0) products += lane == 0;
+      if (s == ls) {
+        if constexpr (kCount > 0) { ++tc_lanes; passed += __popc(pass); rows += __popc(pass); }
+        unsigned bits = pass;
+        while (bits) {
+          const int row = ls + __ffs(bits) - 1;
+          bits &= bits - 1;
+          float t;
+          if (lean_form(mt.lean + (size_t)row * 5, f, r, &t) &&
+              (t < tbest || (t == tbest && row < ibest))) {
+            tbest = t;
+            ibest = row;
+          }
+        }
+      }
+    }
+    // every other pending leaf by its lane alone
+    if constexpr (!kEvery) {
+      if (s >= 0 && !tc) {
+        if constexpr (kCount > 0) rows += kMtTcl;
+        for (int j = 0; j < kMtTcl; ++j) {
+          float t;
+          const int row = s + j;
+          if (lean_form(mt.lean + (size_t)row * 5, f, r, &t) &&
+              (t < tbest || (t == tbest && row < ibest))) {
+            tbest = t;
+            ibest = row;
+          }
+        }
+      }
+    }
+  }
+  if (have) {
+    t_out[i] = tbest;
+    i_out[i] = ibest;
+  }
+  if constexpr (kCount > 0) {
+    const int mine[7] = {pops, leaves, steps, products, tc_lanes, passed, rows};
+    __shared__ int part[7][kThreads / 32];
+#pragma unroll
+    for (int c = 0; c < 7; ++c) {
+      const int w = __reduce_add_sync(kFull, mine[c]);
+      if (lane == 0) part[c][threadIdx.x >> 5] = w;
+    }
+    __syncthreads();
+    int* slot = counts + (size_t)(blockIdx.x * kThreads / kTile) * kMtCounts;
+    if (threadIdx.x < 7) {
+      int b = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) b += part[threadIdx.x][w];
+      atomicAdd(slot + threadIdx.x, b);
+    }
+    if (threadIdx.x < 32 && hist[threadIdx.x]) atomicAdd(slot + 8 + threadIdx.x, hist[threadIdx.x]);
+  }
+}
+
+inline MtTables mt_tables(const float* lean, const float* frag, const float* center) {
+  return MtTables{reinterpret_cast<const float4*>(lean), reinterpret_cast<const float4*>(frag),
+                  center};
 }
 
 template <bool kInst, int kTcl>
@@ -718,11 +1002,11 @@ int launch_closest_baked(const float* rox, const float* roy, const float* roz,
   if (kCount > 0 && n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
   return with_leaf_size(tcl, [&](auto leaf) {
     if (n <= 0) return;
-    bvh_closest_kernel<false, false, kCount, decltype(leaf)::value>
+    bvh_closest_kernel<false, kCount, decltype(leaf)::value>
         <<<blocks_for(n), kThreads, 0, stream>>>(
             rox, roy, roz, rdx, rdy, rdz, tmin, tmax, reinterpret_cast<const float4*>(tri),
             child, axis, reinterpret_cast<const float4*>(boxes), InstTables{},
-            LinearTable{nullptr, nullptr}, sub_table(sub_order, sub_boxes), n, t_rows, tcl,
+            sub_table(sub_order, sub_boxes), n, t_rows, tcl,
             n_nodes, t_out, i_out, nullptr, counts, err);
   });
 }
@@ -789,12 +1073,11 @@ extern "C" int launch_bvh_closest_inst(
     int n, int t_rows, int tcl, int n_nodes, int n_leaves,
     float* t_out, int* i_out, int* l_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<true, false, 0, 0><<<blocks_for(n), kThreads, 0, stream>>>(
+    bvh_closest_kernel<true, 0, 0><<<blocks_for(n), kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
-        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
-        LinearTable{nullptr, nullptr}, SubTable{},
+        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves), SubTable{},
         n, t_rows, tcl, n_nodes, t_out, i_out, l_out, nullptr, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -812,12 +1095,11 @@ extern "C" int launch_bvh_closest_inst_count(
     float* t_out, int* i_out, int* l_out, int* counts, int* err, cudaStream_t stream) {
   if (n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    bvh_closest_kernel<true, false, 4, 0><<<n / kThreads, kThreads, 0, stream>>>(
+    bvh_closest_kernel<true, 4, 0><<<n / kThreads, kThreads, 0, stream>>>(
         rox, roy, roz, rdx, rdy, rdz, tmin, tmax,
         reinterpret_cast<const float4*>(tri), child, axis,
         reinterpret_cast<const float4*>(boxes),
-        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves),
-        LinearTable{nullptr, nullptr}, SubTable{},
+        inst_tables(leaf_start, leaf_inst, w2o, subleaf, n_leaves), SubTable{},
         n, t_rows, tcl, n_nodes, t_out, i_out, l_out, counts, err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -841,18 +1123,58 @@ extern "C" int launch_bvh_anyhit_inst(
   return static_cast<int>(cudaGetLastError());
 }
 
+// K10: lean (T, 20), frag (T / 32 * 256, 4) and center (3,) from
+// accel/bvh_traverse.py mt_kernel_tables; every pending leaf on the
+// tensor-core filter.
 extern "C" int launch_bvh_closest_mt(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, const float* tmin, const float* tmax,
-    const float* mt_rows, const float* center, const int* child, const int* axis,
-    const float* boxes, int n, int t_rows, int tcl, int n_nodes, float* t_out,
+    const float* lean, const float* frag, const float* center, const int* child,
+    const int* axis, const float* boxes, int n, int t_rows, int n_nodes, float* t_out,
     int* i_out, int* err, cudaStream_t stream) {
   if (n > 0) {
-    bvh_closest_kernel<false, true, 0, 0><<<blocks_for(n), kThreads, 0, stream>>>(
-        rox, roy, roz, rdx, rdy, rdz, tmin, tmax, nullptr, child, axis,
-        reinterpret_cast<const float4*>(boxes), InstTables{},
-        LinearTable{reinterpret_cast<const float4*>(mt_rows), center}, SubTable{},
-        n, t_rows, tcl, n_nodes, t_out, i_out, nullptr, nullptr, err);
+    bvh_closest_mt_kernel<0, true><<<blocks_for(n), kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax, mt_tables(lean, frag, center), child, axis,
+        reinterpret_cast<const float4*>(boxes), n, t_rows, n_nodes, 1, t_out, i_out,
+        nullptr, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10 where only a leaf that at least share_min lanes of a warp hold goes
+// through the tensor-core filter (33: every leaf on the CUDA cores), for
+// measurement and as the reference K10's filter is held against (no
+// wrapper; no path launches it).
+extern "C" int launch_bvh_closest_mt_at(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* lean, const float* frag, const float* center, const int* child,
+    const int* axis, const float* boxes, int n, int t_rows, int n_nodes, int share_min,
+    float* t_out, int* i_out, int* err, cudaStream_t stream) {
+  if (n > 0) {
+    bvh_closest_mt_kernel<0, false><<<blocks_for(n), kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax, mt_tables(lean, frag, center), child, axis,
+        reinterpret_cast<const float4*>(boxes), n, t_rows, n_nodes, share_min, t_out, i_out,
+        nullptr, err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_bvh_closest_mt_at with per-tile counts (see bvh_closest_mt_kernel),
+// for measurement only (no wrapper; no path launches it): counts
+// (n / 1024, 40) int32, zeroed by the caller; n % 1024 == 0.
+extern "C" int launch_bvh_closest_mt_visits(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, const float* tmin, const float* tmax,
+    const float* lean, const float* frag, const float* center, const int* child,
+    const int* axis, const float* boxes, int n, int t_rows, int n_nodes, int share_min,
+    float* t_out, int* i_out, int* counts, int* err, cudaStream_t stream) {
+  if (n % kTile != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    bvh_closest_mt_kernel<1, false><<<n / kThreads, kThreads, 0, stream>>>(
+        rox, roy, roz, rdx, rdy, rdz, tmin, tmax, mt_tables(lean, frag, center), child, axis,
+        reinterpret_cast<const float4*>(boxes), n, t_rows, n_nodes, share_min, t_out, i_out,
+        counts, err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -64,7 +64,11 @@ KERNELS = {
     "bvh_anyhit_inst": ("bvh_traverse", "launch_bvh_anyhit_inst",
                         [_P] * 8 + [_P] * 8 + [_I] * 5 + [_P] * 3),
     "bvh_closest_mt": ("bvh_traverse", "launch_bvh_closest_mt",
-                       [_P] * 8 + [_P] * 5 + [_I] * 4 + [_P] * 4),
+                       [_P] * 8 + [_P] * 6 + [_I] * 3 + [_P] * 4),
+    "bvh_closest_mt_at": ("bvh_traverse", "launch_bvh_closest_mt_at",
+                          [_P] * 8 + [_P] * 6 + [_I] * 4 + [_P] * 4),
+    "bvh_closest_mt_visits": ("bvh_traverse", "launch_bvh_closest_mt_visits",
+                              [_P] * 8 + [_P] * 6 + [_I] * 4 + [_P] * 5),
     "gather_planes": ("gather", "launch_gather_planes",
                       [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]),
     "count_less": ("gather", "launch_count_less", [_P, _I, _I, _I, _P, _P, _I, _P, _P]),

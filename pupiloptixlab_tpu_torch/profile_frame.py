@@ -33,7 +33,7 @@ FRAMES = 2
 # the port's kernels by their __global__ names in csrc/*.cu
 PORT_KERNELS = ("gather_planes_kernel", "count_less_kernel", "bvh_closest_kernel",
                 "bvh_anyhit_kernel", "sweep_closest_kernel", "sweep_anyhit_kernel",
-                "atrous_iter_kernel")
+                "atrous_iter_kernel", "bvh_closest_mt_kernel")
 
 
 def _busy_us(ranges) -> float:

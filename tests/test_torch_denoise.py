@@ -249,3 +249,93 @@ def test_denoise_pass_matches_reference_on_port_buffers():
     np.testing.assert_allclose(got.reshape(h, w, 3), want, **TOL)
     assert got.std() < color.std()  # the check of tests/test_mesh_env.py:60-63
     system.destroy()
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (the product is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _atrous_iter_model(color, albedo, normal, step: int, use_albedo: bool = True,
+                      use_normal: bool = True, sigma_color: float = 0.35,
+                      sigma_albedo: float = 0.15, sigma_normal: float = 0.25):
+    """K9's arithmetic in float32 on (3, h, w) planes, where it departs from
+    ``atrous_step``'s order (csrc/atrous.cu): the albedo distance and the
+    normal dot as fused multiply-add chains, one exponential of the two
+    edge-stop exponents summed, and the weighted sums accumulated with
+    fused multiply-adds. Taps in row-major order, edges clamped, as the
+    kernel sums them."""
+    _, h, w = color.shape
+    inv_2sc = 1.0 / (2.0 * sigma_color**2)
+    inv_2sa = 1.0 / (2.0 * sigma_albedo**2)
+    n_pow, npow_int = tk.normal_power(sigma_normal)
+    halo = 2 * step
+    pads = tk._edge_pad(torch.cat([color, albedo, normal]), halo)
+    lum = 0.2126 * pads[0] + 0.7152 * pads[1] + 0.0722 * pads[2]
+    lum_c = lum[halo:halo + h, halo:halo + w]
+    ac = albedo
+    nc = normal
+    acc = [torch.zeros_like(color[0]) for _ in range(3)]
+    wsum = torch.zeros_like(color[0])
+    for iy in range(-2, 3):
+        for ix in range(-2, 3):
+            k = float(tk._B3[iy + 2] * tk._B3[ix + 2])
+            y0, x0 = halo + iy * step, halo + ix * step
+
+            def sh(j):
+                return pads[j, y0:y0 + h, x0:x0 + w]
+
+            dl = lum[y0:y0 + h, x0:x0 + w] - lum_c
+            e = -(dl * dl) * inv_2sc
+            if use_albedo:
+                d = [sh(3 + c) - ac[c] for c in range(3)]
+                da = _fma(d[2], d[2], _fma(d[1], d[1], d[0] * d[0]))
+                e = _fma(-da, torch.full_like(da, inv_2sa), e)
+            wt = k * torch.exp(e)
+            if use_normal:
+                nd = _fma(sh(8), nc[2], _fma(sh(7), nc[1], sh(6) * nc[0]))
+                ndot = torch.clamp(nd, 0.0, 1.0)
+                if npow_int:
+                    pw = ndot
+                    for _ in range(npow_int - 1):
+                        pw = pw * ndot
+                else:
+                    pw = torch.pow(ndot, n_pow)
+                wt = wt * pw
+            acc = [_fma(sh(c), wt, acc[c]) for c in range(3)]
+            wsum = wsum + wt
+    inv_w = 1.0 / torch.clamp(wsum, min=1e-8)
+    return torch.stack([a * inv_w for a in acc])
+
+
+@pytest.mark.parametrize("kwargs", [
+    {},
+    {"use_albedo": False, "use_normal": False},
+    {"use_albedo": True, "use_normal": False},
+    {"sigma_normal": 0.3},  # n_pow 3.33: pow, not products
+], ids=["guided", "unguided", "albedo", "pow"])
+def test_k9_arithmetic_model_within_the_gate(kwargs):
+    """K9's float32 arithmetic (``_atrous_iter_model``: fused multiply-add
+    chains, one exponential a tap, fused accumulation) against its plain
+    version ``atrous_iter_plain`` at steps 1-16, each step on the plain
+    output of the one before, on HDR colour (uniform times a log-normal
+    factor up to ~1e3, a few fireflies at 1e4) over a 37x23 image, so that
+    steps 8 and 16 clamp at every edge: within K9's gate, atol 2e-6 and
+    rtol 1e-5."""
+    r = np.random.RandomState(21)
+    h, w = 23, 37
+    color = r.rand(3, h, w) * np.exp(r.randn(1, h, w) * 2.0)
+    color[:, r.randint(0, h, 4), r.randint(0, w, 4)] = 1e4
+    albedo = r.rand(3, h, w)
+    normal = r.randn(3, h, w)
+    normal /= np.linalg.norm(normal, axis=0, keepdims=True)
+    x, a, n = (_t(v.astype(np.float32)) for v in (color, albedo, normal))
+    worst = 0.0
+    for it in range(5):
+        step = 1 << it
+        want = tk.atrous_iter_plain(x, a, n, step, **kwargs)
+        got = _atrous_iter_model(x, a, n, step, **kwargs)
+        torch.testing.assert_close(got, want, **TOL)
+        worst = max(worst, float(((got - want).abs() / (2e-6 + 1e-5 * want.abs())).max()))
+        x = want
+    assert worst > 0.0  # the model's arithmetic does depart from the plain order
