@@ -33,8 +33,10 @@ Phases (each fails the run on its first fault; nothing is caught):
               inputs where there is one; each timed three ways: CUDA events
               around 10 calls (ms, what the kernels line sums), and device
               time apart from issue time (split_time_ms); one call of each
-              wrapper form under torch.profiler must
-              issue exactly one kernel, its own; the launch path's pieces
+              wrapper form under torch.profiler, in a profiler window of its
+              own, must issue exactly one kernel, its own (a window without
+              the call's record, which CUPTI dropped, is repeated, up to 3
+              windows); the launch path's pieces
               timed on the host; the sub-leaf gates of K1/K2
               (check_bvh_subleaf_gates): K1 and K2 with the sub-leaf table
               against the same kernels with an all-pass table (the full
@@ -189,6 +191,27 @@ Phases (each fails the run on its first fault; nothing is caught):
               shard's own tree and through K5: t bit-equal to K1 over the
               whole table, rows off only on exact ties of t across shards
               (<= 1e-4 of the hits)
+ 17. spectral System + PTPass at 1920x1080: data/dispersion.xml (its own
+              spectral integrator, depth 6, the chunk sweep: K5, K6, K3, K4
+              must launch, K1 and K2 must not) and mesh_env under
+              PTPass(spectral=True) (depth 4: K1-K4), 2 warm-up + 2 timed
+              frames each, the counts set to 0 before and read after
+ 18. sanitizer  a mesh_env frame at 1920x1080 with debug_checks: the report
+              all zeros; with NaN constant colours in a copy of the texture
+              table assert_all_finite raises SanitizerError naming radiance
+ 19. restir   ReSTIRPass DI and GI at 1920x1080 through System on oracle_mat
+              (the chunk sweep) and on mesh_env plus one area-lit rectangle
+              built through the scene layer (K1/K2), 2 warm-up + 2 timed
+              frames (GI's camera moves before its last frame)
+ 20. wavefront  render_wavefront at 1920x1080, spp 1, on mesh_env and
+              oracle_mat: 1 warm-up + 2 timed, its iterations and host syncs
+ 21. parity   every path of 17-20 on the card against the CPU at equal seeds:
+              spectral dispersion.xml 64x64 and mesh_env 128x8 (the sanitizer
+              report equal too), ReSTIR DI and GI on oracle_mat 64x64 and the
+              lit mesh_env 128x8 (2 frames; GI's second after a camera move),
+              the wavefront frame on mesh_env 128x8 and oracle_mat 64x64
+              (its film scatter adds in one order on both devices): rel MSE
+              <= 1e-5, >= 99% of pixels within rtol 1e-4 (phase 7's limits)
   9. no-jax   neither 'jax' nor any module of the JAX package is in sys.modules
 
 Each kernel's bound_ms is the least time the card could take for the timed
@@ -213,7 +236,8 @@ chunk-sweep System runs; K7, K8 on the instanced System run; K9 on the
 mesh_env_denoise run (its 5 launches on that frame's buffers); K10 on the
 mesh_env_mt32 run (primary and bounce rays); K11 on the mesh_env_balanced
 run (phase 16c: one launch per balance refresh, timed on the 1080p primary
-rays, its plain version on the 64 tiles it is compared on). On big_env and
+rays, its plain version on the 64 tiles it is compared on). The launches of
+phases 17-20 are checked in those phases and are not in the line. On big_env and
 the instanced scene the plain versions are timed on the 65,536-lane subset
 they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
 K4's ms, plain_ms, bound_ms and library_ms cover its shared-form calls
@@ -2823,6 +2847,383 @@ def phase_ring_rounds(big, results, reps: int = 1):
     results.setdefault("parallel", {})["ring_d4"] = e
 
 
+# -- the slice of spectral transport, the sanitizer, ReSTIR and the wavefront
+# engine: phases 17-21. Their launches are checked in each phase (every
+# kernel of the path must launch, none of the other route's) and stay out of
+# the kernels line, whose sums cover the paths of PATHS_OF.
+
+DISPERSION = DATA / "dispersion.xml"
+SWEEP_KERNELS = ("sweep_closest", "sweep_anyhit", "gather_planes", "count_less")
+BVH_KERNELS = ("bvh_closest", "bvh_anyhit", "gather_planes", "count_less")
+PARITY_SEEDS = (0, 1)
+
+
+def lit_mesh_env(width: int, height: int):
+    """data/mesh_env.xml plus one area-lit rectangle above its floor, built
+    through the port's scene layer: an envmap alone gives ReSTIR no area
+    light, so its reservoirs would never run on the BVH route."""
+    from pupiloptixlab_tpu_torch.scene import load_scene
+    from pupiloptixlab_tpu_torch.scene.emitters import Emitter, EmitterType
+    from pupiloptixlab_tpu_torch.scene.materials import Material, MatType
+    from pupiloptixlab_tpu_torch.scene.shapes import ShapeInstance
+    from pupiloptixlab_tpu_torch.scene.textures import rgb_texture
+    from pupiloptixlab_tpu_torch.utils.math import Transform
+
+    scene = load_scene(MESH_ENV)
+    scene.sensor.film.w, scene.sensor.film.h = width, height
+    scene.shape_instances.append(ShapeInstance(
+        shape=scene.shape_manager.load_rectangle(),
+        material=Material(type=MatType.DIFFUSE),
+        transform=Transform().scale(0.8, 0.8, 1).rotate(1, 0, 0, 90).translate(0.0, 3.0, 0.0),
+        emitter=Emitter(type=EmitterType.AREA, radiance=rgb_texture(8.0, 8.0, 8.0)),
+        is_emitter=True,
+    ))
+    return scene
+
+
+def set_scene_object(system, scene) -> None:
+    """System.set_scene for a Scene built in code: the world takes it and
+    the passes get SCENE_LOAD, as after a file load."""
+    from pupiloptixlab_tpu_torch.utils.event import SCENE_LOAD
+
+    system.world.set_scene(scene)
+    system.events.dispatch(SCENE_LOAD, system.world)
+
+
+def moved_camera(scene, dx: float, device):
+    """The scene's camera block with the camera trucked ``dx`` along its
+    right axis (the scene is left as it was)."""
+    from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene
+    from pupiloptixlab_tpu_torch.utils.math import Transform
+
+    old = scene.sensor.transform
+    m = old.matrix.copy()
+    m[:3, 3] += m[:3, 0] * dx
+    scene.sensor.transform = Transform(m)
+    try:
+        return camera_block_from_scene(scene, device=device)
+    finally:
+        scene.sensor.transform = old
+
+
+NEW_WARM, NEW_FRAMES = 2, 4  # warm-up frames, all frames, of each System run of phases 17-19
+
+
+def drive_system(label, make_pass, load, buffer, results, path, absent=(), before=None,
+                 check=None):
+    """A pass through System on the card as a user drives it: ``load(system)``
+    sets the scene, then NEW_WARM warm-up frames and the rest of NEW_FRAMES
+    timed (``before(i, system)`` ahead of frame i), the launch counts set to
+    0 just before the first frame and read just after the last; every kernel
+    of ``path`` must launch, none of ``absent``. Returns the pass."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.system import System
+
+    system = System()
+    p = make_pass()
+    system.add_pass(p)
+    t0 = time.perf_counter()
+    load(system)
+    load_s = time.perf_counter() - t0
+    if check is not None:
+        check(p)
+    n = p._config.width * p._config.height
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    frames = NEW_FRAMES
+    for i in range(frames):
+        if before is not None:
+            before(i, system)
+        t0 = time.perf_counter()
+        system.run(max_frames=1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    frame = system.buffers[buffer].array
+    finite = bool(torch.isfinite(frame).all())
+    mean = float(frame.mean())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = sum(times[NEW_WARM:]) / (frames - NEW_WARM)
+    per_frame = {k: v / frames for k, v in launches.items() if v}
+    log(f"  {label} {p._config.width}x{p._config.height} depth {p._config.max_depth}: "
+        f"set_scene {load_s:.2f} s, warm-up {', '.join(f'{t:.1f}' for t in times[:NEW_WARM])} "
+        f"ms, {ms:.2f} ms/frame (frames {', '.join(f'{t:.1f}' for t in times[NEW_WARM:])}), "
+        f"mean {mean:.5f}, peak "
+        f"{peak_gb:.2f} GB, launches a frame {per_frame}")
+    require(tuple(frame.shape) == (n, 3) and finite and mean > 0.0,
+            f"{label}: frame is not finite and non-zero")
+    require(all(launches[k] > 0 for k in path) and all(launches[k] == 0 for k in absent),
+            f"{label}: the path must launch {path} and not {absent}: {launches}")
+    results.setdefault("new_paths", {})[label] = {
+        "ms_per_frame": ms, "frame_ms": times, "set_scene_s": load_s, "mean": mean,
+        "peak_gb": peak_gb, "frames": frames, "launches": launches,
+        "launches_per_frame": per_frame}
+    system.destroy()
+    return p
+
+
+def phase_spectral(tmp, results) -> None:
+    """Hero-wavelength transport at 1920x1080 through System + PTPass:
+    dispersion.xml (its own spectral integrator, depth 6, the chunk sweep)
+    and mesh_env under PTPass(spectral=True) (depth 4, K1/K2)."""
+    from pupiloptixlab_tpu_torch.passes import PTPass
+
+    def expect(route_bvh, depth):
+        def check(p):
+            c = p._config
+            require(c.spectral and (c.bvh_nodes > 0) == route_bvh
+                    and (c.width, c.height, c.max_depth) == (*FILM, depth),
+                    f"expected a spectral frame at 1920x1080 depth {depth}: {c}")
+        return check
+
+    drive_system("spectral dispersion", PTPass,
+                 lambda s: require(s.set_scene(scene_copy(DISPERSION, *FILM, tmp)), "set_scene"),
+                 "pt accum", results, SWEEP_KERNELS, ("bvh_closest", "bvh_anyhit"),
+                 check=expect(False, 6))
+    drive_system("spectral mesh_env", lambda: PTPass(spectral=True),
+                 lambda s: require(s.set_scene(scene_copy(MESH_ENV, *FILM, tmp)), "set_scene"),
+                 "pt accum", results, BVH_KERNELS, ("sweep_closest", "sweep_anyhit"),
+                 check=expect(True, 4))
+
+
+def phase_sanitizer(results) -> None:
+    """The value sanitizer on a mesh_env frame at 1920x1080 (render_frame
+    with debug_checks): the report all zeros; then NaN constant colours in
+    a copy of the texture table (the reference's tests/test_sanitizer.py:58):
+    assert_all_finite raises SanitizerError naming the radiance stage."""
+    import dataclasses
+
+    import torch
+
+    from pupiloptixlab_tpu_torch.flatten.types import TEX_RGB
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+    from pupiloptixlab_tpu_torch.utils.debug import SanitizerError, assert_all_finite
+
+    data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
+    config = dataclasses.replace(config, debug_checks=True)
+    n = config.width * config.height
+    accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+    render_frame(data, cam, 0, 0, accum, config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, bufs = render_frame(data, cam, 1, 1, accum, config)
+    assert_all_finite(bufs["sanitizer"], context="mesh_env")
+    ms = (time.perf_counter() - t0) * 1e3
+    clean = {k: int(v) for k, v in bufs["sanitizer"].items()}
+    log(f"  mesh_env {config.width}x{config.height} with debug_checks: report {clean}, {ms:.1f} ms for the frame "
+        f"and its gate")
+    require(set(clean) == {"radiance", "albedo", "normal", "primary_t", "throughput"}
+            and not any(clean.values()), f"sanitizer: a clean frame reported {clean}")
+    tex = data.textures.packed.clone()
+    tex[:, TEX_RGB] = float("nan")
+    bad = dataclasses.replace(data, textures=dataclasses.replace(data.textures, packed=tex))
+    _, bufs = render_frame(bad, cam, 2, 0, accum, config)
+    report = {k: int(v) for k, v in bufs["sanitizer"].items()}
+    try:
+        assert_all_finite(bufs["sanitizer"], context="mesh_env")
+        raised = None
+    except SanitizerError as exc:
+        raised = str(exc)
+    log(f"  NaN texture colours: report {report}; raised: {raised}")
+    require(raised is not None and "radiance" in raised and report["radiance"] > 0,
+            "sanitizer: NaN texture colours did not raise SanitizerError naming radiance")
+    results["sanitizer"] = {"clean": clean, "nan_textures": report, "error": raised,
+                            "frame_and_gate_ms": ms}
+
+
+def phase_restir(tmp, results) -> None:
+    """ReSTIRPass at 1920x1080 through System: DI and GI on oracle_mat (the
+    chunk sweep) and on mesh_env with one added area light (K1/K2). From
+    the second frame on the temporal merge has history; GI's camera moves
+    before its last frame, which keeps the reservoirs through the motion
+    warp (DI's history resets on a camera edit, so DI's camera stays)."""
+    from pupiloptixlab_tpu_torch.passes import ReSTIRPass
+    from pupiloptixlab_tpu_torch.utils.event import CAMERA_MOVE
+
+    def move(i, system):
+        if i == NEW_FRAMES - 1:
+            system.events.dispatch(CAMERA_MOVE, (3.0, 0.0, 0.0))
+
+    def check_history(p):
+        m = p._reservoirs[:, 11]
+        require(float(m.max()) > 0.0, "restir: no reservoir took a sample")
+
+    def load_oracle(system):
+        require(system.set_scene(scene_copy(ORACLE_MAT, *FILM, tmp)), "set_scene")
+
+    def load_lit(system):
+        set_scene_object(system, lit_mesh_env(*FILM))
+        require(system.world.get_scene_data()[1].emitter_count > 0, "no area light")
+
+    for name, gi in (("DI", False), ("GI", True)):
+        for scene, load, path, absent in (
+                ("oracle_mat", load_oracle, SWEEP_KERNELS, ("bvh_closest", "bvh_anyhit")),
+                ("lit mesh_env", load_lit, BVH_KERNELS, ("sweep_closest", "sweep_anyhit"))):
+            p = drive_system(f"ReSTIR {name} {scene}", lambda: ReSTIRPass(gi=gi), load,
+                             "restir accum", results, path, absent,
+                             before=move if gi else None)
+            check_history(p)
+            m = float(p._reservoirs[:, 11].max())
+            log(f"    reservoirs: largest M {m:.0f}")
+            results["new_paths"][f"ReSTIR {name} {scene}"]["max_m"] = m
+
+
+def phase_wavefront(results) -> None:
+    """render_wavefront at 1920x1080, spp 1, on mesh_env (K1/K2) and
+    oracle_mat (the chunk sweep): 1 warm-up + 2 timed calls, the counts set
+    to 0 just before and read just after; its iterations and host syncs."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.wavefront import render_wavefront
+
+    for label, xml, path, absent in (
+            ("wavefront mesh_env", MESH_ENV, BVH_KERNELS, ("sweep_closest", "sweep_anyhit")),
+            ("wavefront oracle_mat", ORACLE_MAT, SWEEP_KERNELS, ("bvh_closest", "bvh_anyhit"))):
+        data, config, cam = load_tables(xml, *FILM, DEV)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for seed in range(3):
+            t0 = time.perf_counter()
+            out = render_wavefront(data, cam, seed, config, spp=1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.LAUNCHES)
+        film = out["film"]
+        mean = float(film.mean())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_frame = {k: v / 3 for k, v in launches.items() if v}
+        ms = (times[1] + times[2]) / 2
+        log(f"  {label} {config.width}x{config.height} spp 1 depth {config.max_depth}: warm-up "
+            f"{times[0]:.1f} ms, {ms:.2f} ms/frame (frames {times[1]:.1f}, {times[2]:.1f}), "
+            f"{out['iterations']} iterations, {out['syncs']} host "
+            f"syncs, mean {mean:.5f}, peak {peak_gb:.2f} GB, launches a frame {per_frame}")
+        require(bool(torch.isfinite(film).all()) and mean > 0.0, f"{label}: film not finite")
+        require(out["syncs"] == out["iterations"] + 1, f"{label}: one sync an iteration")
+        require(all(launches[k] > 0 for k in path) and all(launches[k] == 0 for k in absent),
+                f"{label}: the path must launch {path} and not {absent}: {launches}")
+        results.setdefault("new_paths", {})[label] = {
+            "ms_per_frame": ms, "frame_ms": times, "iterations": out["iterations"],
+            "syncs": out["syncs"], "mean": mean, "peak_gb": peak_gb, "launches": launches,
+            "launches_per_frame": per_frame}
+        del data, out, film
+        torch.cuda.empty_cache()
+
+
+def image_gate(label, card, cpu, worst) -> None:
+    """Phase 7's image limits on one (card, CPU) pair of (N, 3) arrays."""
+    import numpy as np
+
+    rel = float(np.mean((card - cpu) ** 2) / max(np.mean(cpu ** 2), 1e-30))
+    frac = float(np.isclose(card, cpu, rtol=1e-4, atol=0.0).all(-1).mean())
+    log(f"  {label}: rel MSE {rel:.3e}, pixels within rtol 1e-4 {frac:.4f}")
+    require(np.isfinite(card).all() and rel <= 1e-5 and frac >= 0.99,
+            f"card and CPU frames disagree: {label}")
+    worst["rel_mse"] = max(worst.get("rel_mse", 0.0), rel)
+    worst["frac_within_1e-4"] = min(worst.get("frac_within_1e-4", 1.0), frac)
+
+
+def phase_new_parity(results) -> None:
+    """Every path of phases 17-21 on the card against the CPU at equal
+    seeds on small films: spectral dispersion.xml 64x64 and mesh_env 128x8
+    (2 progressive frames; test AOV bit-equal, the sanitizer's report equal
+    on the latter); ReSTIR DI and GI, 2 frames each, on oracle_mat 64x64 and
+    the lit mesh_env 128x8 (GI's second frame after a camera move, with
+    prev_camera; frames and accumulation held, the packed reservoirs
+    reported); the wavefront frame (spp 1) on mesh_env 128x8 and oracle_mat
+    64x64, whose film scatter adds a pixel's lanes in the same order on
+    both devices. Limits: rel MSE <= 1e-5, >= 99% of pixels within rtol
+    1e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+    from pupiloptixlab_tpu_torch.render.restir import N_PACK, restir_frame
+    from pupiloptixlab_tpu_torch.render.restir_gi import restir_gi_frame
+    from pupiloptixlab_tpu_torch.wavefront import render_wavefront
+
+    worst = {}
+    packed_near = []
+
+    def tables(scene, dev):
+        data, config = flatten_scene(scene, device=dev)
+        return data, config, camera_block_from_scene(scene, device=dev)
+
+    def scene_at(xml, w, h):
+        from pupiloptixlab_tpu_torch.scene import load_scene
+
+        scene = load_scene(xml)
+        scene.sensor.film.w, scene.sensor.film.h = w, h
+        return scene
+
+    # spectral
+    for label, scene, spectral in (("dispersion 64x64", scene_at(DISPERSION, 64, 64), None),
+                                   ("mesh_env 128x8", scene_at(MESH_ENV, 128, 8), True)):
+        seqs = []
+        for dev in (DEV, "cpu"):
+            data, config, cam = tables(scene, dev)
+            config = dataclasses.replace(config, spectral=True, debug_checks=True)
+            accum = torch.zeros((config.width * config.height, 3), device=dev)
+            seq = []
+            for i in PARITY_SEEDS:
+                _, b = render_frame(data, cam, i, i, accum, config)
+                seq.append({k: (v.cpu().numpy().copy() if k != "sanitizer" else
+                                {s: int(c) for s, c in v.items()}) for k, v in b.items()})
+            seqs.append(seq)
+        for i, (g, c) in enumerate(zip(*seqs)):
+            image_gate(f"spectral {label} seed {i}", g["frame"], c["frame"], worst)
+            require(np.array_equal(g["test"], c["test"]) and g["sanitizer"] == c["sanitizer"],
+                    f"spectral {label}: test AOV or sanitizer report differ")
+        log(f"    sanitizer report (card = CPU): {seqs[0][-1]['sanitizer']}")
+
+    # ReSTIR DI and GI
+    for label, scene in (("oracle_mat 64x64", scene_at(ORACLE_MAT, 64, 64)),
+                         ("lit mesh_env 128x8", lit_mesh_env(128, 8))):
+        for name, gi in (("DI", False), ("GI", True)):
+            outs = []
+            for dev in (DEV, "cpu"):
+                data, config, cam = tables(scene, dev)
+                cam1 = moved_camera(scene, 0.15, dev)
+                n = config.width * config.height
+                acc = torch.zeros((n, 3), device=dev)
+                packed = torch.zeros((n, N_PACK), device=dev)
+                seq = []
+                for i in PARITY_SEEDS:
+                    if gi:
+                        acc, packed, frame = restir_gi_frame(
+                            data, cam1 if i else cam, i, packed, acc, i, config,
+                            prev_camera=cam if i else None)
+                    else:
+                        acc, packed, frame = restir_frame(data, cam, i, packed, acc, i, config)
+                    seq.append([x.cpu().numpy().copy() for x in (frame, acc, packed)])
+                outs.append(seq)
+            for i, (g, c) in enumerate(zip(*outs)):
+                image_gate(f"ReSTIR {name} {label} frame {i}", g[0], c[0], worst)
+                image_gate(f"ReSTIR {name} {label} accum {i}", g[1], c[1], worst)
+                near = float(np.isclose(g[2], c[2], rtol=1e-4, atol=1e-5).mean())
+                packed_near.append(near)
+                log(f"    packed reservoirs within rtol 1e-4 + atol 1e-5: {near:.6f}")
+
+    # wavefront
+    for label, scene in (("mesh_env 128x8", scene_at(MESH_ENV, 128, 8)),
+                         ("oracle_mat 64x64", scene_at(ORACLE_MAT, 64, 64))):
+        films = []
+        for dev in (DEV, "cpu"):
+            data, config, cam = tables(scene, dev)
+            films.append(render_wavefront(data, cam, 5, config, spp=1)["film"].cpu().numpy())
+        image_gate(f"wavefront {label}", films[0], films[1], worst)
+    results["parity_new_paths"] = {**worst, "packed_near_min": min(packed_near)}
+
+
 def build(kernels) -> None:
     log("[build] nvcc, one process per source")
     kernels.build_all()
@@ -2928,6 +3329,23 @@ def main() -> int:
     phase_parity(results)
     log("[oracle] 64x64 renders against the brute-force oracles")
     phase_oracle(results)
+    t_new = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log("[spectral] dispersion.xml and mesh_env (spectral=True) through System + PTPass")
+        phase_spectral(Path(tmp), results)
+        torch.cuda.empty_cache()
+        log("[sanitizer] mesh_env with debug_checks, clean and with NaN texture colours")
+        phase_sanitizer(results)
+        torch.cuda.empty_cache()
+        log("[restir] ReSTIRPass DI and GI on oracle_mat and mesh_env with an area light")
+        phase_restir(Path(tmp), results)
+        torch.cuda.empty_cache()
+    log("[wavefront] render_wavefront on mesh_env and oracle_mat")
+    phase_wavefront(results)
+    log("[parity] the new paths, card against CPU")
+    phase_new_parity(results)
+    results["new_paths_seconds"] = time.perf_counter() - t_new
+    log(f"[new paths] {results['new_paths_seconds']:.1f} s")
 
     foreign = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -2949,11 +3367,12 @@ def main() -> int:
 def check_one_launch(data, rays, results) -> None:
     """Each form of the K3 and K4 wrappers issues exactly one kernel, its
     own, and no cast or copy beside it: one call of each under
-    torch.profiler (CUDA activity), on mesh_env's tables at the first
-    bounce's own indices and draws."""
+    torch.profiler (CUDA activity), each form in a window of its own
+    (``one_call_window``), on mesh_env's tables at the first bounce's own
+    indices and draws. A window with a kernel other than the form's own, or
+    more than one, fails at once; only a window with no record of the call
+    (CUPTI dropped it) is repeated, up to LAUNCH_WINDOWS windows in all."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pupiloptixlab_tpu_torch.accel import gather as ga
 
@@ -2978,29 +3397,48 @@ def check_one_launch(data, rays, results) -> None:
     }
     for _, fn in forms.values():
         fn()
-    sentinel = torch.empty(1, device=row.device)
     torch.cuda.synchronize()
-    # one profile over all the calls in turn, then a sentinel fill, so that a
-    # device record the profiler flushes late is the sentinel's, not a call's
+    out, repeated = {}, {}
+    for label, (kernel, fn) in forms.items():
+        for window in range(1, LAUNCH_WINDOWS + 1):
+            names = one_call_window(fn)
+            # a real extra or foreign launch shows in every window: fail at once
+            require(len(names) <= 1 and all(kernel in n for n in names),
+                    f"{label}: the call must launch its own kernel once, got {names}")
+            if names:
+                break
+            log(f"  {label}: window {window} shows no device record (dropped), repeated")
+        require(bool(names), f"{label}: no device record in {LAUNCH_WINDOWS} windows")
+        repeated[label] = window - 1
+        log(f"  {label}: device op {names[0]}")
+        out[label] = names[0]
+    log(f"  windows repeated for a dropped record: {sum(repeated.values())} "
+        f"({repeated})")
+    results["one_launch_per_call"] = out
+    results["one_launch_windows_repeated"] = repeated
+
+
+LAUNCH_WINDOWS = 3  # profiler windows a wrapper form may take before its check fails
+
+
+def one_call_window(fn) -> list:
+    """The device kernels of one call of ``fn`` under torch.profiler (CUDA
+    activity), in a window of its own, without the sentinel: a
+    ``torch.cuda._sleep`` (``spin_kernel``) issued after the call, so that a
+    record the profiler flushes late is the sentinel's, not the call's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _, fn in forms.values():
-            fn()
+        fn()
         torch.cuda.synchronize()
-        sentinel.fill_(1.0)
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    names = [e.name for e in events]
-    extra = names[len(forms):]
-    out = {}
-    for label, name in zip(forms, names):
-        log(f"  {label}: device op {name}")
-        out[label] = name
-    require(len(names) >= len(forms) and len(extra) <= 1
-            and all(k in n for (k, _), n in zip(forms.values(), names))
-            and not any("gather_planes" in n or "count_less" in n for n in extra),
-            f"each call must launch its own kernel once, in order: {names}")
-    results["one_launch_per_call"] = out
+    return [e.name for e in events if "spin_kernel" not in e.name]
 
 
 def launch_path_us(results) -> None:

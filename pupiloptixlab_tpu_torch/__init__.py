@@ -2,7 +2,8 @@
 
 The JAX package ``pupiloptixlab_tpu`` is the reference; this package
 mirrors its layout (``scene/``, ``flatten/``, ``accel/``, ``render/``,
-``world/``, ``system/``, ``passes/``, ``display/``, ``utils/``) module for
+``world/``, ``system/``, ``passes/``, ``wavefront/``, ``display/``,
+``utils/``) module for
 module and function for function. Plain PyTorch carries the elementwise
 shading math; every Pallas kernel on the ported path has a hand-written
 CUDA C++ counterpart for Hopper (``csrc/``), built with nvcc at first use

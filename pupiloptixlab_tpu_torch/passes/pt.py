@@ -7,15 +7,16 @@ launch state on SCENE_LOAD, goes dirty on CAMERA_CHANGE /
 RENDER_INSTANCE_UPDATE (resetting progressive accumulation), and exposes
 max-depth + accumulate toggles through the inspector.
 
-Spectral transport (ROADMAP A.9) and the value sanitizer (PUPIL_SANITIZE,
-ROADMAP A.12) are not ported: asking for either raises, here or in the
-integrator; neither is swallowed.
+``spectral=`` forces (or forbids) hero-wavelength transport over the
+scene's own integrator. ``PUPIL_SANITIZE`` (non-empty) sets
+``debug_checks``: every frame then carries the sanitizer's report, and the
+pass reads it once a frame and raises ``SanitizerError`` naming the bad
+stages (the reference's CUDA_SYNC_CHECK-after-pass mode).
 """
 
 from __future__ import annotations
 
 import dataclasses
-
 import os
 
 import torch
@@ -28,6 +29,7 @@ from pupiloptixlab_tpu_torch.utils.event import (
     RENDER_INSTANCE_UPDATE,
     SCENE_LOAD,
 )
+from pupiloptixlab_tpu_torch.utils.debug import assert_all_finite
 
 
 class PTPass(Pass):
@@ -40,8 +42,8 @@ class PTPass(Pass):
         # type="spectral_path">); True/False force it
         self.spectral_override = spectral
         self.accumulate = True
-        # PUPIL_SANITIZE asks for the reference's value-sanitizer mode;
-        # it reaches the integrator as config.debug_checks, which raises
+        # PUPIL_SANITIZE: the value sanitizer in every frame, gated after
+        # each on_run (optix/pipeline.cpp:19, system/system.cpp:51)
         self._sanitize = bool(os.environ.get("PUPIL_SANITIZE"))
         self.sample_cnt = 0
         self.seed = 0
@@ -122,6 +124,8 @@ class PTPass(Pass):
         bm.set_array("pt test", bufs["test"])
         if "final result" in bm:
             bm.set_array("final result", bufs["frame"])
+        if self._config.debug_checks:
+            assert_all_finite(bufs["sanitizer"], context=self.name)
         self.sample_cnt += 1
         self.seed += 1
 

@@ -22,12 +22,18 @@ turns the whole lane order back into row-major pixels. Since the RNG is
 keyed by pixel id, a slab's lanes equal the same lanes of the whole frame,
 bit for bit, under any permutation.
 
-Not ported here: spectral transport and the value sanitizer
-(``NotImplementedError``).
+Spectral transport (``config.spectral``, render/spectral.py): one extra
+draw right after the pixel jitter picks the path's 4 wavelengths;
+radiance and throughput become Spec4 planes, every RGB quantity lifts at
+its use site, a dispersive transmission collapses the path to its hero,
+and the sensor integrates back to RGB before the AOVs are written. The
+value sanitizer (``config.debug_checks``, utils/debug.py) adds a report
+of per-stage counts of bad values to the buffers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -44,6 +50,7 @@ from pupiloptixlab_tpu_torch.flatten.types import (
 from pupiloptixlab_tpu_torch.render import bsdf as bsdf_mod
 from pupiloptixlab_tpu_torch.render import emitter as emitter_mod
 from pupiloptixlab_tpu_torch.render import rng
+from pupiloptixlab_tpu_torch.render import spectral as sp
 from pupiloptixlab_tpu_torch.render.camera import generate_rays_for
 from pupiloptixlab_tpu_torch.render.geometry import get_local_geometry
 from pupiloptixlab_tpu_torch.render.sampling import (
@@ -56,6 +63,7 @@ from pupiloptixlab_tpu_torch.render.sampling import (
 )
 from pupiloptixlab_tpu_torch.render.texture import gather_texture, sample_texture_cols
 from pupiloptixlab_tpu_torch.render.vec import Vec3, where
+from pupiloptixlab_tpu_torch.utils.debug import finite_report
 
 _TINY = 1e-12
 _BLOCK_H, _BLOCK_W = 8, 128
@@ -173,11 +181,30 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _bounce(scene, config, n, carry, depth):
-    """One NEE + BSDF-bounce iteration (the body of main.cu:103-184)."""
-    state, active, radiance, throughput, wo_world, geo, local, esc = carry
+def _apply_dispersion(local, lams: sp.Spec4):
+    """Spectral mode: Cauchy-shift the dielectric ior ratio to the hero
+    wavelength (the path's geometry follows the hero)."""
+    return dataclasses.replace(local, eta=sp.eta_at(local.eta, local.dispersion, lams.s0))
+
+
+def _bounce(scene, config, n, carry, depth, lams=None):
+    """One NEE + BSDF-bounce iteration (the body of main.cu:103-184).
+
+    ``lams`` (spectral mode only): the path's Spec4 wavelengths. Radiance,
+    throughput and the escape throughput are then Spec4 planes, every RGB
+    quantity lifts through ``spectral.lift`` at its use site, and the carry
+    ends with the ``mono`` mask (lanes collapsed to their hero after a
+    dispersive transmission)."""
+    spectral = lams is not None
+    if spectral:
+        (state, active, radiance, throughput, wo_world, geo, local, esc, mono) = carry
+        lift = functools.partial(sp.lift, lams=lams)
+    else:
+        state, active, radiance, throughput, wo_world, geo, local, esc = carry
+        lift = _identity
     em, tex = scene.emitters, scene.textures
     dev = state.device
+    zero_l = sp.Spec4.zeros(n, device=dev) if spectral else Vec3.zeros(n, device=dev)
 
     state, us = rng.next_floats(state, 7)
     u_rr, u_sel, u_l1, u_l2, u_b0, u_b1, u_b2 = us
@@ -211,10 +238,9 @@ def _bounce(scene, config, n, carry, depth):
     pdf_light = es.pdf * es.select_prob
     mis = torch.where(es.is_delta, 1.0, mis_weight(pdf_light, pdf_bsdf))
     scale = nol * mis / torch.clamp(pdf_light, min=_TINY)
-    contrib = throughput * es.radiance * f_nee * scale
+    contrib = throughput * lift(es.radiance) * lift(f_nee) * scale
     take = shadow_mask & ~occluded
-    zero3 = Vec3.zeros(n, device=dev)
-    radiance = radiance + where(take, contrib, zero3)
+    radiance = radiance + where(take, contrib, zero_l)
     del es, contrib, occluded
 
     # --- BSDF sampling + bounce (main.cu:142-183) ----------------------------
@@ -224,8 +250,22 @@ def _bounce(scene, config, n, carry, depth):
     cos_term = torch.abs(wi_s.z)
     bad = is_zero(f_s * cos_term) | is_zero(pdf_s)
     active = active & ~bad
-    weight = f_s * (cos_term / torch.clamp(pdf_s, min=_TINY))
+    weight = lift(f_s) * (cos_term / torch.clamp(pdf_s, min=_TINY))
     throughput = where(active, throughput * weight, throughput)
+    if spectral:
+        # hero collapse (Wilkie et al. 2014): a transmission through a
+        # dispersive dielectric bends each wavelength differently; the
+        # secondary wavelengths terminate and the hero takes the 4x MIS
+        # compensation, once a path
+        newly = (active & (wi_s.z * wo_local.z < 0.0) & (local.dispersion > 0.0)
+                 & ~mono)
+        throughput = sp.Spec4(
+            torch.where(newly, throughput.s0 * sp.SPECTRAL_SAMPLES, throughput.s0),
+            torch.where(newly, 0.0, throughput.s1),
+            torch.where(newly, 0.0, throughput.s2),
+            torch.where(newly, 0.0, throughput.s3),
+        )
+        mono = mono | newly
 
     new_rd = to_world(wi_s, geo.normal)
     new_ro = geo.position
@@ -255,6 +295,8 @@ def _bounce(scene, config, n, carry, depth):
         scene.materials, tex, geo.mat_id, geo.uv, config.mat_types,
         config.mat_tex_kinds, config.mat_tex_filters,
     )
+    if spectral:
+        local = _apply_dispersion(local, lams)
     wo_world = -new_rd
 
     # hit an emitter -> MIS-weighted emission (main.cu:171-183)
@@ -264,8 +306,13 @@ def _bounce(scene, config, n, carry, depth):
     mis_hit = torch.where(nee_blind, 1.0, mis_weight(pdf_s, emit_pdf * hit_sel_prob))
     # emission is one-sided on the stored normal (geo.front)
     take_e = active & (geo.emitter_id >= 0) & ~is_zero(emit_pdf) & geo.front
-    radiance = radiance + where(take_e, throughput * emit_rad * mis_hit, zero3)
-    return (state, active, radiance, throughput, wo_world, geo, local, esc)
+    radiance = radiance + where(take_e, throughput * lift(emit_rad) * mis_hit, zero_l)
+    out = (state, active, radiance, throughput, wo_world, geo, local, esc)
+    return out + (mono,) if spectral else out
+
+
+def _identity(v):
+    return v
 
 
 def render_sample(
@@ -277,18 +324,24 @@ def render_sample(
     slab=None,
 ):
     """Trace one sample per pixel; returns a dict of flat (N, *) buffers:
-    radiance, albedo, normal, test, in row-major pixel order. With ``slab``
-    (k, d) only the lanes ``lane_pixels(config, tile_perm, slab)`` are
-    traced, and the buffers are (N / d, *) in their lane order."""
-    if config.spectral:
-        raise NotImplementedError("spectral transport: ROADMAP A.9")
-    if config.debug_checks:
-        raise NotImplementedError("value sanitizer (debug_checks): ROADMAP A.12")
+    radiance, albedo, normal, test, in row-major pixel order, and with
+    ``config.debug_checks`` the sanitizer's report. With ``slab`` (k, d)
+    only the lanes ``lane_pixels(config, tile_perm, slab)`` are traced, and
+    the buffers are (N / d, *) in their lane order."""
     em, tex = scene.emitters, scene.textures
     dev = scene.tris.packed.device
     pix = lane_pixels(config, tile_perm, slab, dev)
     n = pix.shape[0]
     state, (ro, rd, tmin, tmax) = primary_rays(camera, config, seed, pix)
+    spectral = config.spectral
+    if spectral:
+        # 4 stratified path wavelengths from one draw (hero + 3 rotations)
+        state, (u_lam,) = rng.next_floats(state, 1)
+        lams = sp.sample_wavelengths(u_lam)
+        lift = functools.partial(sp.lift, lams=lams)
+    else:
+        lams = None
+        lift = _identity
     hit = intersect_closest(ro, rd, tmin, tmax, scene, config)
     geo = get_local_geometry(scene, hit, ro, rd, config.sphere_count,
                              config.instanced, config.curve_count)
@@ -296,16 +349,23 @@ def render_sample(
         scene.materials, tex, geo.mat_id, geo.uv, config.mat_types,
         config.mat_tex_kinds, config.mat_tex_filters,
     )
+    if spectral:
+        local = _apply_dispersion(local, lams)
 
     active = hit.hit_mask
-    radiance = Vec3.zeros(n, device=dev)
-    throughput = Vec3.ones(n, device=dev)
     zero3 = Vec3.zeros(n, device=dev)
+    if spectral:
+        radiance, throughput = sp.Spec4.zeros(n, device=dev), sp.Spec4.ones(n, device=dev)
+        zero_l = radiance
+    else:
+        radiance, throughput = zero3, Vec3.ones(n, device=dev)
+        zero_l = zero3
 
     # primary miss -> un-weighted env radiance, deferred to the single
     # post-loop eval_env (esc_pdf = -1 encodes "no MIS weight")
     esc = (
-        (~active, rd, Vec3.ones(n, device=dev),
+        (~active, rd,
+         sp.Spec4.ones(n, device=dev) if spectral else Vec3.ones(n, device=dev),
          torch.full((n,), -1.0, dtype=torch.float32, device=dev))
         if config.has_env
         else None
@@ -314,7 +374,7 @@ def render_sample(
     # first-hit emission (main.cu:87-92), one-sided on the stored normal
     is_emitter = active & (geo.emitter_id >= 0) & geo.front
     emit0 = _first_hit_emission(scene, config, geo)
-    radiance = radiance + where(is_emitter, emit0, zero3)
+    radiance = radiance + where(is_emitter, lift(emit0), zero_l)
 
     # AOVs from the first hit (main.cu:94-99)
     albedo_aov = where(active, bsdf_mod.albedo(local), zero3)
@@ -323,12 +383,14 @@ def render_sample(
     # the reference writes one RNG draw to the debug AOV (main.cu:101)
     state, test_aov = rng.next_float(state)
 
+    primary_t = torch.where(hit.hit_mask, hit.t, 0.0) if config.debug_checks else None
     carry = (state, active, radiance, throughput, -rd, geo, local, esc)
+    if spectral:
+        carry = carry + (torch.zeros(n, dtype=torch.bool, device=dev),)  # mono
     del hit, emit0
     for depth in range(1, config.max_depth):
-        carry = _bounce(scene, config, n, carry, depth)
-    radiance = carry[2]
-    esc = carry[7]
+        carry = _bounce(scene, config, n, carry, depth, lams=lams)
+    radiance, throughput, esc = carry[2], carry[3], carry[7]
     del carry
 
     # deferred environment resolve: one eval_env per sample
@@ -338,7 +400,11 @@ def render_sample(
         mis_env = torch.where(
             esc_pdf < 0.0, 1.0, mis_weight(esc_pdf, env_pdf * em.env_select_prob),
         )
-        radiance = radiance + where(esc_mask, esc_tp * env_rad * mis_env, zero3)
+        radiance = radiance + where(esc_mask, esc_tp * lift(env_rad) * mis_env, zero_l)
+
+    if spectral:
+        # sensor: Monte-Carlo CMF integration over the path wavelengths
+        radiance = sp.to_rgb(radiance, lams)
 
     out = {
         "radiance": radiance.to_array(),
@@ -348,7 +414,28 @@ def render_sample(
     }
     if slab is None:
         out = {k: lanes_to_pixels(v, config, tile_perm) for k, v in out.items()}
+    if config.debug_checks:
+        # radiance must be finite and non-negative; a negative throughput
+        # catches bad BSDF weights even where they never reach the image
+        out["sanitizer"] = finite_report({
+            "radiance": (out["radiance"], 0.0),
+            "albedo": (out["albedo"], 0.0),
+            "normal": (out["normal"], None),
+            "primary_t": (primary_t, 0.0),
+            "throughput": (throughput.to_array(), 0.0),
+        })
     return out
+
+
+def blend(accum: torch.Tensor, radiance: torch.Tensor, sample_cnt: int,
+          accumulate: bool) -> None:
+    """The progressive 1/(n+1) blend of ``radiance`` into ``accum``, in
+    place (main.cu:187-193); without accumulation ``accum`` takes it."""
+    if accumulate and sample_cnt > 0:
+        t = _f32(np.float32(1.0) / (np.float32(sample_cnt) + np.float32(1.0)))
+        accum.add_((radiance - accum) * t)
+    else:
+        accum.copy_(radiance)
 
 
 def render_frame(
@@ -365,23 +452,22 @@ def render_frame(
 
     ``accum`` ((N, 3) float32) is updated in place, as the reference
     donates it. Returns (accum, buffers) where buffers holds the
-    displayable AOVs (frame, albedo, normal, test). ``tile_perm`` and
+    displayable AOVs (frame, albedo, normal, test) and, with
+    ``config.debug_checks``, the sanitizer's report (0-dim int32 counts on
+    the frame's device). ``tile_perm`` and
     ``slab`` as in ``render_sample``: with a slab, ``accum`` and the
     buffers hold that slab's lanes only, in lane order."""
     with torch.inference_mode():
         out = render_sample(scene, camera, seed, config, tile_perm, slab)
-        radiance = out["radiance"]
-        if config.accumulate and sample_cnt > 0:
-            t = _f32(np.float32(1.0) / (np.float32(sample_cnt) + np.float32(1.0)))
-            accum.add_((radiance - accum) * t)
-        else:
-            accum.copy_(radiance)
+        blend(accum, out["radiance"], sample_cnt, config.accumulate)
         buffers = {
             "frame": accum,
             "albedo": out["albedo"],
             "normal": out["normal"],
             "test": out["test"],
         }
+        if config.debug_checks:
+            buffers["sanitizer"] = out["sanitizer"]
     return accum, buffers
 
 

@@ -172,22 +172,31 @@ def test_render_is_a_loop_of_frames():
 
 @pytest.mark.parametrize("change", ["spectral", "debug_checks", "tile_perm"])
 def test_unported_options_raise(change):
-    """Spectral transport and the sanitizer still raise. ``tile_perm`` is
-    ported (parallel/): a chunk-sweep scene keeps its row-major lanes and
-    ignores it, as the reference does, so the frame is the same."""
+    """Options that raised before their slice was ported now render:
+    spectral transport gives a finite frame of the usual buffers, the
+    sanitizer adds its report (all zeros on oracle_mat), and ``tile_perm``
+    on a chunk-sweep scene keeps its row-major lanes and is ignored, as the
+    reference does, so the frame is the same."""
     scene = _load("oracle_mat.xml", 8, 8)
     data, config = flatten_scene(scene, device="cpu")
     cam = camera_block_from_scene(scene, device="cpu")
+    _, plain = render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config)
+    plain = {k: v.clone() for k, v in plain.items()}
     if change == "tile_perm":
-        _, plain = render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config)
-        plain = {k: v.clone() for k, v in plain.items()}
         _, got = render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config,
                               tile_perm=torch.arange(1))
         assert all(torch.equal(got[k], plain[k]) for k in plain)
         return
     config = dataclasses.replace(config, **{change: True})
-    with pytest.raises(NotImplementedError):
-        render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config)
+    _, got = render_frame(data, cam, 0, 0, torch.zeros((64, 3)), config)
+    assert set(got) == set(plain) | ({"sanitizer"} if change == "debug_checks" else set())
+    assert bool(torch.isfinite(got["frame"]).all())
+    if change == "debug_checks":
+        assert all(torch.equal(got[k], plain[k]) for k in plain)
+        assert {k: int(v) for k, v in got["sanitizer"].items()} == dict.fromkeys(
+            ("radiance", "albedo", "normal", "primary_t", "throughput"), 0)
+    else:
+        assert not torch.equal(got["test"], plain["test"])  # u_lam comes before it
 
 
 def test_port_never_imports_jax():
@@ -195,7 +204,8 @@ def test_port_never_imports_jax():
     layer, flattens it, renders one 128x8 frame, and steps a System with a
     PTPass and a DenoisePass on oracle_mat (the denoiser and the matmul-form
     leaf test's modules come in through them), and imports the multi-device
-    modules (parallel/ with its dry run), all on the CPU, importing
+    modules (parallel/ with its dry run), spectral transport, the
+    sanitizer, ReSTIR and the wavefront engine, all on the CPU, importing
     neither jax nor any module of the JAX package. It runs with
     JAX_PLATFORMS=cpu set, which
     makes the JAX package's __init__ import jax: the stricter of the two
@@ -229,6 +239,11 @@ def test_port_never_imports_jax():
         import pupiloptixlab_tpu_torch.parallel.ring_sweep
         import pupiloptixlab_tpu_torch.parallel.sharding
         import pupiloptixlab_tpu_torch.scene.deep_soup
+        import pupiloptixlab_tpu_torch.render.spectral
+        import pupiloptixlab_tpu_torch.render.restir_gi
+        import pupiloptixlab_tpu_torch.utils.debug
+        from pupiloptixlab_tpu_torch.passes import ReSTIRPass
+        from pupiloptixlab_tpu_torch.wavefront import render_wavefront
         foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                          or m == "pupiloptixlab_tpu" or m.startswith("pupiloptixlab_tpu."))
         assert not foreign, foreign

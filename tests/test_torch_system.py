@@ -214,17 +214,38 @@ def test_display_clients_are_refused(kw):
 
 
 def test_unported_modes_raise_and_are_not_swallowed(monkeypatch):
-    """spectral=True and PUPIL_SANITIZE reach the integrator, which raises."""
-    system = System(device="cpu")
-    system.add_pass(PTPass(spectral=True))
-    assert system.set_scene(SCENE)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    """spectral=True and PUPIL_SANITIZE reach the integrator: the spectral
+    frame draws its wavelengths (so its test AOV is another draw than the
+    RGB frame's), and under PUPIL_SANITIZE the pass raises SanitizerError
+    on a frame with bad values instead of swallowing it."""
+    import dataclasses
+
+    from pupiloptixlab_tpu_torch.flatten.types import TEX_RGB
+    from pupiloptixlab_tpu_torch.utils.debug import SanitizerError
+
+    tests = []
+    for spectral in (True, False):
+        system = System(device="cpu")
+        pt = PTPass(spectral=spectral, max_depth=2)
+        system.add_pass(pt)
+        assert system.set_scene(SCENE)
         system.run(max_frames=1)
+        assert pt._config.spectral is spectral
+        assert bool(torch.isfinite(system.buffers["pt frame"].array).all())
+        tests.append(system.buffers["pt test"].array.clone())
+    assert not torch.equal(*tests)
     monkeypatch.setenv("PUPIL_SANITIZE", "1")
     system = System(device="cpu")
-    system.add_pass(PTPass())
+    pt = PTPass(max_depth=2)
+    system.add_pass(pt)
     assert system.set_scene(SCENE)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    system.run(max_frames=1)
+    assert pt._config.debug_checks
+    tex = pt._scene_data.textures.packed.clone()
+    tex[:, TEX_RGB] = float("nan")
+    pt._scene_data = dataclasses.replace(pt._scene_data, textures=dataclasses.replace(
+        pt._scene_data.textures, packed=tex))
+    with pytest.raises(SanitizerError, match="radiance"):
         system.run(max_frames=1)
 
 
