@@ -8,10 +8,11 @@ K1, K2 and K11 alone:             python3 chip_smoke.py --bvh LABEL [--package D
 K5 and K6 alone:                  python3 chip_smoke.py --sweep LABEL [--package DIR]
 K10 alone:                        python3 chip_smoke.py --mt LABEL [--package DIR]
 K9 alone:                         python3 chip_smoke.py --atrous LABEL [--package DIR]
+Phase 22 alone:                   python3 chip_smoke.py --display LABEL [--package DIR]
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
 timing in the same call; main_tables, main_inst, main_bvh, main_sweep,
-main_mt and main_atrous say what they run.)
+main_mt, main_atrous and main_display say what they run.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -212,6 +213,29 @@ Phases (each fails the run on its first fault; nothing is caught):
               the wavefront frame on mesh_env 128x8 and oracle_mat 64x64
               (its film scatter adds in one order on both devices): rel MSE
               <= 1e-5, >= 99% of pixels within rtol 1e-4 (phase 7's limits)
+ 22. display  (a) System(display="web", web_port=0) + PTPass on mesh_env at
+              1920x1080, depth 4, served by System.run(threaded=True) with its
+              render thread running, driven over HTTP on 127.0.0.1: /api/state
+              (the buffers, the pass, the objects), /frame.png (its IHDR
+              1920x1080), /api/pick at the centre (the same object and t as
+              pick_object on the host), /api/objdrag translate (the following
+              frames run on refitted tables, no flatten, K1/K2 launched),
+              /api/input drag (sample_cnt falls back), /api/screenshot to an
+              EXR (equal to the selected buffer, flipped) and the first part
+              of /stream where Pillow imports (whether Pillow and matplotlib
+              import is printed); K1-K4 must launch in the phase, K5/K6 not;
+              1080p frames timed with the client bound, at the preview's
+              stride 2 and on a headless System, in turns, the pump alone
+              (to_display_u8 + the uint8 fetch) and the PNG / JPEG encodes;
+              (b) on the headless System: 3 frames, save_render_state, a
+              fresh pass state, restore_render_state, 3 frames: the accum
+              bit-equal to 6 uninterrupted frames; save and restore timed,
+              the file's size; (c) FrameStats bound for 4 frames, then trace()
+              around 2 frames with annotate("frame"): the written trace holds
+              K1's kernel and both ranges; (d) ComputePass with
+              examples/compute_test_torch.py's animate at 256x256 for 10
+              frames: its buffers on the card within rtol 1e-6 / atol 1e-6 of
+              the same pass on the CPU
   9. no-jax   neither 'jax' nor any module of the JAX package is in sys.modules
 
 Each kernel's bound_ms is the least time the card could take for the timed
@@ -237,7 +261,7 @@ mesh_env_denoise run (its 5 launches on that frame's buffers); K10 on the
 mesh_env_mt32 run (primary and bounce rays); K11 on the mesh_env_balanced
 run (phase 16c: one launch per balance refresh, timed on the 1080p primary
 rays, its plain version on the 64 tiles it is compared on). The launches of
-phases 17-20 are checked in those phases and are not in the line. On big_env and
+phases 17-20 and 22 are checked in those phases and are not in the line. On big_env and
 the instanced scene the plain versions are timed on the 65,536-lane subset
 they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
 K4's ms, plain_ms, bound_ms and library_ms cover its shared-form calls
@@ -254,9 +278,11 @@ Output: progress lines, then a {"kernels": [...]} JSON line, the
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3224,6 +3250,326 @@ def phase_new_parity(results) -> None:
     results["parity_new_paths"] = {**worst, "packed_near_min": min(packed_near)}
 
 
+DISPLAY_FRAMES = 4      # timed frames of each kind in phase 22 (after one warm-up)
+COMPUTE_SIZE, COMPUTE_FRAMES = 256, 10  # phase 22(d): compute_test_torch's animate
+
+
+def http(port: int, path: str, body=None, timeout: float = 60.0):
+    """(payload, content type) of a GET, or of a POST of ``body`` as JSON,
+    to the web client on this machine."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read(), r.headers.get("Content-Type", "")
+
+
+def post(port: int, route: str, body: dict) -> dict:
+    return json.loads(http(port, f"/api/{route}", body)[0])
+
+
+def wait_for(cond, timeout: float, what: str) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        require(time.monotonic() - t0 < timeout, f"waited {timeout:.0f} s for {what}")
+        time.sleep(0.005)
+
+
+def frame_ms(system, n: int) -> list:
+    """Host ms of n + 1 single frames through System.run, each ended by a
+    synchronise; the first is a warm-up."""
+    import torch
+
+    out = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(max_frames=1)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out[1:]
+
+
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def package_imports(name: str) -> bool:
+    try:
+        __import__(name)
+    except ImportError:
+        return False
+    return True
+
+
+def phase_display(tmp, results) -> None:
+    """Phase 22: the display clients, checkpoints, profiling and the compute
+    pass on the card. (a) System(display="web", web_port=0) + PTPass on
+    mesh_env at 1920x1080, depth 4, its render thread running
+    (System.run(threaded=True)), driven over HTTP; (b) a checkpoint of a
+    headless System's PTPass resumed bit-equal; (c) FrameStats and a trace
+    of that System; (d) ComputePass card against CPU."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.display.tonemap import expand_to_rgba
+    from pupiloptixlab_tpu_torch.display.web import _encode_jpeg, _encode_png
+    from pupiloptixlab_tpu_torch.passes import ComputePass, PTPass
+    from pupiloptixlab_tpu_torch.system import System
+    from pupiloptixlab_tpu_torch.utils.checkpoint import (
+        TREE_FILE,
+        restore_render_state,
+        save_render_state,
+    )
+    from pupiloptixlab_tpu_torch.utils.event import FRAME_FINISHED
+    from pupiloptixlab_tpu_torch.utils.image import read_exr
+    from pupiloptixlab_tpu_torch.utils.profiling import FrameStats, annotate, trace
+    from pupiloptixlab_tpu_torch.world import world as world_mod
+
+    out = {"pillow": package_imports("PIL"), "matplotlib": package_imports("matplotlib")}
+    log(f"  Pillow imports: {out['pillow']}; matplotlib imports: {out['matplotlib']}")
+    xml = scene_copy(MESH_ENV, *FILM, tmp)
+
+    # (a) the web client on the card, its render thread running
+    system = System(display="web", web_port=0)
+    pt = PTPass()
+    system.add_pass(pt)
+    t0 = time.perf_counter()
+    require(system.set_scene(xml), "set_scene")
+    out["set_scene_s"] = time.perf_counter() - t0
+    c = pt._config
+    require((c.width, c.height, c.max_depth) == (*FILM, 4) and c.bvh_nodes > 0,
+            f"expected mesh_env's BVH route at 1920x1080 depth 4: {c}")
+    d = system.display
+    frames = []
+    system.events.bind(FRAME_FINISHED, frames.append)
+    flattens = []
+    real = world_mod.flatten_scene
+
+    def counting(*args, **kwargs):
+        flattens.append(1)
+        return real(*args, **kwargs)
+
+    world_mod.flatten_scene = counting
+    d.start()
+    port = d.port
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    runner = threading.Thread(target=system.run, kwargs={"threaded": True}, daemon=True)
+    runner.start()
+    try:
+        wait_for(lambda: d.latest_image() is not None, 120, "a first displayed frame")
+        state = json.loads(http(port, "/api/state")[0])
+        require(state["rendering"] and "pt frame" in state["buffers"]
+                and [p["name"] for p in state["passes"]] == ["Path Tracing"]
+                and {o["name"] for o in state["objects"]} == {"Ball", "Floor"},
+                f"/api/state: {state}")
+        t0 = time.perf_counter()
+        png, ctype = http(port, "/frame.png")
+        png_get_ms = (time.perf_counter() - t0) * 1e3
+        ihdr = struct.unpack(">II", png[16:24])
+        require(ctype == "image/png" and png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR"
+                and ihdr == FILM, f"/frame.png: {ctype}, IHDR {ihdr}")
+        name, t = d.pick_object(0.5, 0.5)  # host numpy, as the route computes it
+        r = post(port, "pick", {"x": 0.5, "y": 0.5})
+        require(name is not None and r == {"ok": True, "name": name, "t": round(float(t), 4)},
+                f"/api/pick at the centre: {r}, on the CPU {name} {t}")
+        data0 = pt._scene_data
+        n = len(frames)
+        before = dict(kernels.LAUNCHES)
+        require(post(port, "objdrag", {"name": name, "dx": 0.05, "dy": 0.0,
+                                       "mode": "translate"})["ok"], "/api/objdrag")
+        wait_for(lambda: len(frames) >= n + 3, 60, "frames after the object drag")
+        after = dict(kernels.LAUNCHES)
+        data1 = pt._scene_data
+        refit = (data1 is not data0 and not flattens
+                 and type(system.world._refit).__name__ == "RefitData"
+                 and data1.tris.packed.shape == data0.tris.packed.shape
+                 and not torch.equal(data1.tris.packed, data0.tris.packed))
+        require(refit and all(after[k] > before[k] for k in ("bvh_closest", "bvh_anyhit")),
+                f"the frames after /api/objdrag must run K1/K2 on refitted tables "
+                f"(flattens {len(flattens)}, launches {before} -> {after})")
+        wait_for(lambda: pt.sample_cnt >= 3, 60, "3 accumulated frames")
+        cnt = pt.sample_cnt
+        require(post(port, "input", {"type": "drag", "dx": 20, "dy": 0})["ok"], "/api/input")
+        wait_for(lambda: pt.sample_cnt < cnt, 60, "the accumulation to restart after a drag")
+        require(post(port, "render", {"action": "stop"})["ok"], "/api/render stop")
+
+        def settled():
+            m = len(frames)
+            time.sleep(0.3)
+            return len(frames) == m
+
+        wait_for(settled, 30, "the render loop to stop")
+        shot = tmp / "shot.exr"
+        t0 = time.perf_counter()
+        r = post(port, "screenshot", {"path": str(shot)})
+        shot_ms = (time.perf_counter() - t0) * 1e3
+        buf = system.buffers["pt frame"]
+        want = expand_to_rgba(buf.array, *FILM).flip(0).cpu().numpy()
+        require(r["ok"] and np.array_equal(read_exr(shot), want),
+                "/api/screenshot: the EXR must equal the selected buffer, flipped")
+        require(post(port, "render", {"action": "start"})["ok"], "/api/render start")
+        stream = None
+        if out["pillow"]:
+            import urllib.request
+
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stream", timeout=60) as resp:
+                stream = resp.read(65536)
+            require(b"--frame" in stream and b"image/jpeg" in stream and b"\xff\xd8" in stream,
+                    "/stream: no JPEG part")
+    finally:
+        system.quit()
+        runner.join(timeout=60)
+        world_mod.flatten_scene = real
+    system._render_thread.join(timeout=60)
+    require(not runner.is_alive() and not system._render_thread.is_alive(),
+            "quit must end the render thread and the client")
+    launches = dict(kernels.LAUNCHES)
+    require(all(launches[k] > 0 for k in BVH_KERNELS)
+            and all(launches[k] == 0 for k in ("sweep_closest", "sweep_anyhit")),
+            f"web client: the path must launch {BVH_KERNELS} and not K5/K6: {launches}")
+    log(f"  web client on mesh_env {FILM[0]}x{FILM[1]}: set_scene {out['set_scene_s']:.2f} s, {len(frames)} "
+        f"frames served, GET /frame.png {png_get_ms:.1f} ms ({len(png)} B), pick {name} at "
+        f"t {t:.4f} (route = CPU), objdrag: refit without a flatten, K1/K2 after it, the "
+        f"drag restarted the accumulation, screenshot EXR {shot_ms:.1f} ms = the buffer flipped, "
+        f"/stream {'first part read' if stream else 'not read (no Pillow)'}; launches {launches}")
+    out.update(frames_served=len(frames), png_get_ms=png_get_ms, png_bytes=len(png), pick=name,
+               screenshot_exr_ms=shot_ms, stream_read=stream is not None, launches=launches)
+
+    # (b) and the frame times: a headless System on the same scene
+    hs = System()
+    hp = PTPass()
+    hs.add_pass(hp)
+    require(hs.set_scene(xml), "set_scene")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times = {"plain": frame_ms(hs, DISPLAY_FRAMES), "client": frame_ms(system, DISPLAY_FRAMES)}
+    d._preview_until = float("inf")
+    times["client_preview"] = frame_ms(system, DISPLAY_FRAMES)
+    d._preview_until = 0.0
+    times["plain_again"] = frame_ms(hs, DISPLAY_FRAMES)
+
+    def pump_ms(stride_preview: bool) -> float:
+        d._preview_until = float("inf") if stride_preview else 0.0
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d._on_frame_finished(0.0)  # to_display_u8 on the card, one uint8 fetch
+            ms.append((time.perf_counter() - t0) * 1e3)
+        d._preview_until = 0.0
+        return mean(ms[1:])
+
+    pump = {"preview": pump_ms(True), "full": pump_ms(False)}  # the full image last
+    img = d.latest_image()
+    require(img.shape == (FILM[1], FILM[0], 3) and img.dtype == np.uint8, f"image {img.shape}")
+    encode = {}
+    for label, fn in (("png", _encode_png), ("jpeg", _encode_jpeg if out["pillow"] else None)):
+        if fn is not None:
+            t0 = time.perf_counter()
+            blob = fn(img)
+            encode[label] = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": len(blob)}
+    ms = {k: mean(v) for k, v in times.items()}
+    log(f"  {FILM[0]}x{FILM[1]} frame (host ms, mean of {DISPLAY_FRAMES} after a warm-up), headless "
+        f"{ms['plain']:.2f} / {ms['plain_again']:.2f}, with the client bound {ms['client']:.2f}, "
+        f"at the preview's stride 2 {ms['client_preview']:.2f}; the pump alone "
+        f"(to_display_u8 + one uint8 fetch of {img.nbytes} B) {pump['full']:.2f} ms, at stride 2 "
+        f"{pump['preview']:.2f}; encode {encode}")
+    out.update(frame_ms=times, frame_ms_mean=ms, pump_ms=pump, encode=encode)
+    system.display.shutdown()
+    del system, d
+    hp._set_scene(hs.world)
+    hp.seed = 0
+    hs.run(max_frames=6)
+    ref = hp._accum.clone()
+    hp._set_scene(hs.world)
+    hp.seed = 0
+    hs.run(max_frames=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_render_state(tmp / "ckpt", hp)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = (tmp / "ckpt" / TREE_FILE).stat().st_size
+    hp._set_scene(hs.world)
+    require(hp.sample_cnt == 0 and float(hp._accum.abs().sum()) == 0.0, "fresh state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_render_state(tmp / "ckpt", hp)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    require(hs.buffers["pt accum"].array is hp._accum and hp._accum.device.type == DEV
+            and (hp.sample_cnt, hp.seed) == (3, 3), "restore: state and buffers")
+    hs.run(max_frames=3)
+    equal = torch.equal(hp._accum, ref)
+    log(f"  checkpoint: save {save_ms:.1f} ms, restore {restore_ms:.1f} ms, {size} B "
+        f"({hp._accum.numel() * 4} B of accum); 3 + restore + 3 frames bit-equal to 6 "
+        f"uninterrupted: {equal}")
+    require(equal and (hp.sample_cnt, hp.seed) == (6, 6), "checkpoint resume is not bit-equal")
+    out["checkpoint"] = {"save_ms": save_ms, "restore_ms": restore_ms, "bytes": size,
+                         "bit_equal": equal}
+
+    # (c) FrameStats on that System, then a trace of 2 frames
+    stats = FrameStats()
+    stats.bind(hs)
+    hs.run(max_frames=4)
+    summary = stats.summary()
+    require(summary["frames"] == 4 and "Path Tracing" in summary["passes"], f"{summary}")
+    t0 = time.perf_counter()
+    with trace(tmp / "trace") as logdir:
+        for _ in range(2):
+            with annotate("frame"):
+                hs.run(max_frames=1)
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    (path,) = Path(logdir).glob("pupil_*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    k1 = [e for e in events if "bvh_closest_kernel" in e.get("name", "")]
+    # the host's ranges (the card's timeline mirrors each as gpu_user_annotation)
+    marks = [e for e in events if e.get("name") == "frame" and e.get("cat") == "user_annotation"]
+    log(f"  FrameStats over 4 frames {summary}; trace of 2 frames: {traced_ms:.1f} ms with the "
+        f"profiler, {path.stat().st_size} B, {len(events)} events, K1 kernels {len(k1)}, "
+        f"'frame' ranges {len(marks)}")
+    require(len(k1) >= 8 and len(marks) == 2,
+            "the trace must hold K1's kernel (4 a frame) and the 2 annotations")
+    launches = dict(kernels.LAUNCHES)
+    require(all(launches[k] > 0 for k in BVH_KERNELS)
+            and all(launches[k] == 0 for k in ("sweep_closest", "sweep_anyhit")),
+            f"headless mesh_env: the path must launch {BVH_KERNELS} and not K5/K6: {launches}")
+    out["frame_stats"] = summary
+    out["trace"] = {"bytes": path.stat().st_size, "events": len(events), "k1_kernels": len(k1),
+                    "annotations": len(marks), "ms_two_frames": traced_ms}
+    hs.destroy()
+    del hs, hp, ref
+    torch.cuda.empty_cache()
+
+    # (d) ComputePass with compute_test_torch's animate, card against CPU
+    spec = importlib.util.spec_from_file_location(
+        "compute_test_torch", REPO / "examples" / "compute_test_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    bufs = []
+    for dev in (None, "cpu"):
+        cs = System(device=dev)
+        cs.add_pass(ComputePass(lambda f, w, h, cs=cs: example.animate(f, w, h, cs.device),
+                                COMPUTE_SIZE, COMPUTE_SIZE))
+        cs.run(max_frames=COMPUTE_FRAMES)
+        bufs.append({k: cs.buffers[k].array for k in cs.buffers.displayable_names()})
+    card, cpu = bufs
+    require(card.keys() == cpu.keys() == {"wave rgb", "wave x", "wave xy"}
+            and all(v.device.type == DEV for v in card.values()), "ComputePass buffers")
+    worst = max(float((card[k].cpu() - cpu[k]).abs().max()) for k in card)
+    close = all(torch.allclose(card[k].cpu(), cpu[k], rtol=1e-6, atol=1e-6) for k in card)
+    log(f"  ComputePass {COMPUTE_SIZE}x{COMPUTE_SIZE}, {COMPUTE_FRAMES} frames: card against CPU "
+        f"max abs {worst:.3e} (rtol 1e-6, atol 1e-6: {close})")
+    require(close, "ComputePass: card and CPU buffers disagree")
+    out["compute"] = {"max_abs_err": worst}
+    results["display"] = out
+
+
 def build(kernels) -> None:
     log("[build] nvcc, one process per source")
     kernels.build_all()
@@ -3346,6 +3692,13 @@ def main() -> int:
     phase_new_parity(results)
     results["new_paths_seconds"] = time.perf_counter() - t_new
     log(f"[new paths] {results['new_paths_seconds']:.1f} s")
+    t_display = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log("[display] the web client, checkpoints, profiling and ComputePass on the card")
+        phase_display(Path(tmp), results)
+    torch.cuda.empty_cache()
+    results["display_seconds"] = time.perf_counter() - t_display
+    log(f"[display] {results['display_seconds']:.1f} s")
 
     foreign = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -4490,21 +4843,50 @@ def kernels_line(results, runs) -> list:
     return line
 
 
+def main_display(label: str) -> int:
+    """``--display``: only phase 22 (phase_display: the web client on
+    mesh_env at 1080p, the checkpoint resume, FrameStats and a trace, the
+    compute pass card against CPU), on a package that has the display
+    modules (PR 13 or later). Prints the card's line, then the phase's
+    results as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+
+    log(f"[display] {label}: package {Path(kernels.__file__).parent}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "label": label}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_display(Path(tmp), results)
+    results["seconds"] = time.perf_counter() - t0
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def cli() -> int:
     """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
     K3/K4 alone (main_tables); ``--inst LABEL [--package DIR]``: K7/K8 alone
     (main_inst); ``--bvh``: K1/K2/K11 alone (main_bvh); ``--sweep``: K5/K6
     alone (main_sweep); ``--mt``: K10 alone (main_mt); ``--atrous``: K9 alone
-    (main_atrous); each with the package imported from DIR."""
+    (main_atrous); ``--display``: phase 22 alone (main_display); each with
+    the package imported from DIR."""
     args = sys.argv[1:]
     if not args:
         return main()
     modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh,
-             "--sweep": main_sweep, "--mt": main_mt, "--atrous": main_atrous}
+             "--sweep": main_sweep, "--mt": main_mt, "--atrous": main_atrous,
+             "--display": main_display}
     if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
         print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL | "
-              "--sweep LABEL | --mt LABEL | --atrous LABEL] "
+              "--sweep LABEL | --mt LABEL | --atrous LABEL | --display LABEL] "
               "[--package DIR]",
               file=sys.stderr)
         return 2

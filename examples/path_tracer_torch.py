@@ -1,15 +1,17 @@
 """Progressive path tracer over a mitsuba3 XML scene, on the PyTorch/CUDA port.
 
 The counterpart of examples/path_tracer.py for pupiloptixlab_tpu_torch:
-boot the System, add a PTPass, load a scene, render headless, save the
-accumulated image. Run:
+boot the System with a display client, add a PTPass, load a scene, render,
+save a screenshot of the accumulated image. Run:
 
     python examples/path_tracer_torch.py [scene.xml] [--spp N] [--out out.exr]
     python examples/path_tracer_torch.py --device cpu --spp 4   # no GPU
+    python examples/path_tracer_torch.py --interactive   # live window if available
+    python examples/path_tracer_torch.py --web [--port 8090]  # browser GUI
 
 The default device is the CUDA card (an error where there is none); the
 output format follows the extension: .exr and .hdr keep linear radiance,
-anything else gets the display transfer.
+anything else gets the display transfer (PNG and JPEG need Pillow).
 """
 
 from __future__ import annotations
@@ -21,10 +23,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from pupiloptixlab_tpu_torch.display.tonemap import expand_to_rgba, to_display_u8  # noqa: E402
 from pupiloptixlab_tpu_torch.passes import PTPass  # noqa: E402
 from pupiloptixlab_tpu_torch.system import System  # noqa: E402
-from pupiloptixlab_tpu_torch.utils.image import save_image  # noqa: E402
 
 DEFAULT_SCENE = REPO / "data" / "oracle_mat.xml"
 
@@ -37,25 +37,30 @@ def main() -> None:
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
+    ap.add_argument("--interactive", action="store_true",
+                    help="live matplotlib window (needs a local display)")
+    ap.add_argument("--web", action="store_true",
+                    help="serve the interactive GUI over HTTP (remote hosts)")
+    ap.add_argument("--port", type=int, default=8090)
     args = ap.parse_args()
 
-    system = System(device=args.device)
+    system = System(display="web" if args.web else "window", web_port=args.port,
+                    device=args.device)
     pt = PTPass(max_depth=args.max_depth)
     system.add_pass(pt)
     if not system.set_scene(args.scene):
         raise SystemExit(1)
-    system.run(max_frames=args.spp)
 
-    # as the reference's screenshot does: linear RGBA rows flipped for
-    # .exr/.hdr, the display transfer (ACES + gamma, uint8) for the rest
-    buf = system.buffers["pt accum"]
-    rgba = expand_to_rgba(buf.array, buf.desc.width, buf.desc.height).flip(0)
-    if args.out.lower().endswith((".exr", ".hdr")):
-        save_image(args.out, rgba.cpu().numpy())
+    if args.interactive or args.web:
+        system.run(threaded=True)  # render thread + display client, until quit
     else:
-        save_image(args.out, to_display_u8(rgba[..., :3]).cpu().numpy())
-    print(f"saved {args.out} ({pt.sample_cnt} spp on {system.device}, "
-          f"{pt.last_exec_time_ms:.1f} ms/frame last)")
+        # the window client is bound but not run: it only keeps the last
+        # display image. The screenshot is linear RGBA rows flipped for
+        # .exr/.hdr, the display transfer (ACES + gamma, uint8) otherwise
+        system.run(max_frames=args.spp)
+        system.display.save_screenshot(args.out)
+        print(f"saved {args.out} ({pt.sample_cnt} spp on {system.device}, "
+              f"{pt.last_exec_time_ms:.1f} ms/frame last)")
     system.destroy()
 
 

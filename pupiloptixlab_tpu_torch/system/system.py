@@ -42,20 +42,17 @@ class System:
         self,
         has_display: bool = False,
         display: str | None = None,
+        web_host: str = "127.0.0.1",
+        web_port: int = 8090,
         device=None,
     ):
-        """``device``: where the world's tables, the buffers and so the
-        passes live (``None``: the card; raises where there is none).
-        ``display``: only None (headless); "window" and "web" (and
-        ``has_display=True``, the old spelling of "window") raise until
-        the display clients are ported."""
-        if display is None and has_display:
-            display = "window"
-        if display is not None:
-            raise NotImplementedError(
-                f"display={display!r}: the display clients are ROADMAP A.12; "
-                "run headless (display=None) and read the buffers"
-            )
+        """``display``: None (headless), "window" (matplotlib, needs a
+        local display) or "web" (HTTP/MJPEG client on ``web_host``:
+        ``web_port``, 0 for a free port, the GUI of a remote card).
+        ``has_display=True`` keeps the old behavior ("window"). Building a
+        client starts nothing: ``run(threaded=True)`` serves it.
+        ``device``: where the world's tables, the buffers and so the
+        passes live (``None``: the card; raises where there is none)."""
         self.device = resolve_device(device)
         self.events = EventBus()
         self.world = World(self.events, device=self.device)
@@ -73,6 +70,17 @@ class System:
         self.events.bind(START_RENDERING, lambda _: self._render_flag.set())
         self.events.bind(STOP_RENDERING, lambda _: self._render_flag.clear())
         self.events.bind(PRECOMPUTE, lambda _: self._run_pre_passes())
+
+        if display is None and has_display:
+            display = "window"
+        if display == "web":
+            from pupiloptixlab_tpu_torch.display.web import WebDisplay
+
+            self.display = WebDisplay(self, host=web_host, port=web_port)
+        elif display == "window":
+            from pupiloptixlab_tpu_torch.display.client import DisplayClient
+
+            self.display = DisplayClient(self)
 
     # -- passes ---------------------------------------------------------------
     def add_pass(self, p: Pass) -> None:
@@ -131,8 +139,11 @@ class System:
         self._render_flag.clear()
 
     def run(self, max_frames: int | None = None, threaded: bool = False) -> None:
-        """Run the render loop (on a worker thread if ``threaded``; the
-        caller then ends it with ``destroy``)."""
+        """Run the render loop (worker thread if ``threaded``, matching the
+        reference's ThreadPool render loop + main-thread GUI split). With a
+        display the call then blocks in ``display.run()`` until quit;
+        without one it returns, and the caller ends the loop with
+        ``destroy``."""
         self._quit_flag.clear()
         self._render_flag.set()
         if threaded:
@@ -140,6 +151,8 @@ class System:
                 target=self._render_loop, args=(max_frames,), daemon=True
             )
             self._render_thread.start()
+            if self.display is not None:
+                self.display.run()  # blocks on the "GUI thread"
         else:
             self._render_loop(max_frames)
 

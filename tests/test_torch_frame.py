@@ -205,8 +205,9 @@ def test_port_never_imports_jax():
     PTPass and a DenoisePass on oracle_mat (the denoiser and the matmul-form
     leaf test's modules come in through them), and imports the multi-device
     modules (parallel/ with its dry run), spectral transport, the
-    sanitizer, ReSTIR and the wavefront engine, all on the CPU, importing
-    neither jax nor any module of the JAX package. It runs with
+    sanitizer, ReSTIR, the wavefront engine, checkpointing, profiling and
+    the display clients, and steps a ComputePass under the web client, all
+    on the CPU, importing neither jax nor any module of the JAX package. It runs with
     JAX_PLATFORMS=cpu set, which
     makes the JAX package's __init__ import jax: the stricter of the two
     environments."""
@@ -244,6 +245,18 @@ def test_port_never_imports_jax():
         import pupiloptixlab_tpu_torch.utils.debug
         from pupiloptixlab_tpu_torch.passes import ReSTIRPass
         from pupiloptixlab_tpu_torch.wavefront import render_wavefront
+        import pupiloptixlab_tpu_torch.utils.checkpoint
+        import pupiloptixlab_tpu_torch.utils.profiling
+        import pupiloptixlab_tpu_torch.display.client
+        import pupiloptixlab_tpu_torch.display.web
+        from pupiloptixlab_tpu_torch.passes import ComputePass
+        shell = System(display="web", web_port=0, device="cpu")
+        shell.add_pass(ComputePass(lambda f, w, h: {{"ramp": torch.arange(w * h) * (f + 1.0)}},
+                                   8, 4))
+        shell.run(max_frames=2)
+        assert shell.passes[0].frame_index == 2
+        assert float(shell.buffers["ramp"].array[-1]) == 62.0
+        assert shell.display.latest_image().shape == (4, 8, 3)
         foreign = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                          or m == "pupiloptixlab_tpu" or m.startswith("pupiloptixlab_tpu."))
         assert not foreign, foreign

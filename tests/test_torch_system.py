@@ -18,8 +18,8 @@ relative MSE of 2.0e-5, so the film is not cut below the scene's own.)
 
 The pass's ``sample_cnt`` / ``seed`` bookkeeping, the accumulation restarts
 on a camera event and on ``set_max_depth``, the instance-edit path (a device
-refit in both), the display transfer and the refused display clients are
-held too.
+refit in both), the display transfer and the display clients that each
+``display=`` spelling builds are held too.
 """
 
 from pathlib import Path
@@ -209,8 +209,22 @@ def test_expand_to_rgba_matches_reference(channels):
 @pytest.mark.parametrize("kw", [{"display": "web"}, {"display": "window"},
                                 {"has_display": True}])
 def test_display_clients_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        System(device="cpu", **kw)
+    """The name is older than the clients: each spelling now builds its
+    client (the reference's System does the same) and starts no thread;
+    the web server starts with ``run(threaded=True)`` or ``start()``."""
+    import threading
+
+    from pupiloptixlab_tpu_torch.display import DisplayClient
+    from pupiloptixlab_tpu_torch.display.web import WebDisplay
+
+    before = threading.active_count()
+    system = System(device="cpu", web_port=0, **kw)
+    want = WebDisplay if kw.get("display") == "web" else DisplayClient
+    assert type(system.display) is want
+    assert type(JaxSystem(web_port=0, **kw).display).__name__ == want.__name__
+    assert threading.active_count() == before
+    assert getattr(system.display, "_server", None) is None
+    assert System(device="cpu").display is None
 
 
 def test_unported_modes_raise_and_are_not_swallowed(monkeypatch):
