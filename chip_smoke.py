@@ -9,10 +9,11 @@ K5 and K6 alone:                  python3 chip_smoke.py --sweep LABEL [--package
 K10 alone:                        python3 chip_smoke.py --mt LABEL [--package DIR]
 K9 alone:                         python3 chip_smoke.py --atrous LABEL [--package DIR]
 Phase 22 alone:                   python3 chip_smoke.py --display LABEL [--package DIR]
+Phase 23 alone:                   python3 chip_smoke.py --batch LABEL [--package DIR]
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
 timing in the same call; main_tables, main_inst, main_bvh, main_sweep,
-main_mt, main_atrous and main_display say what they run.)
+main_mt, main_atrous, main_display and main_batch say what they run.)
 
 Phases (each fails the run on its first fault; nothing is caught):
   1. device   require CUDA; print the card's name and power limit
@@ -87,7 +88,8 @@ Phases (each fails the run on its first fault; nothing is caught):
               >= 99% of pixels within rtol 1e-4, the RNG test AOV bit-equal;
               mesh_env 128x8 on the card with and without PUPIL_NO_BVH
               (rel MSE printed; the reference reports 0.0)
-  8. oracle   render() at 64x64, 512 spp: mesh_env against
+  8. oracle   render() at 64x64, 512 spp (through render_frame_batch: one
+              captured sample replayed 512 times): mesh_env against
               tests/data/oracle_mesh_env_64.exr (mean ratio within 0.02, rel
               MSE < 1.5e-2) and oracle_mat against tests/data/oracle_mat_64.exr
               (mean ratio within 0.01, rel MSE < 4e-3, 4x4-box rel MSE < 1e-3)
@@ -100,9 +102,10 @@ Phases (each fails the run on its first fault; nothing is caught):
               sub-leaf gates of phase 3 on its five ray sets; K3 and K4
               at its shapes; render_frame 1 warm-up + 2 timed with the counts
               reset before and read after (K1-K4 must launch); the oracle gate
-              of tests/test_oracle_parity.py at 48x48, 128 spp
-              (tests/data/oracle_big_env_48.exr: mean ratio within 0.03,
-              4x4-box rel MSE < 2e-2)
+              of tests/test_oracle_parity.py at 48x48, 128 spp through render()
+              and so render_frame_batch (tests/data/oracle_big_env_48.exr: mean
+              ratio within 0.03, 4x4-box rel MSE < 2e-2); phase 23's
+              batch-against-loop check at 1920x1080
  11. instanced pupiloptixlab_tpu_torch.scene.instanced_grid: 64 instances of an
               8,192-triangle shape, a floor and an envmap, through System +
               PTPass at 1920x1080, depth 4 (instanced tables: 8,256 unique
@@ -236,6 +239,26 @@ Phases (each fails the run on its first fault; nothing is caught):
               examples/compute_test_torch.py's animate at 256x256 for 10
               frames: its buffers on the card within rtol 1e-6 / atol 1e-6 of
               the same pass on the CPU
+ 23. batch    render_frame_batch (on the card: one warm-up sample, then one
+              sample captured into a CUDA graph and replayed spp times, the
+              traversal fault flags read once after the replays) at 1920x1080,
+              depth 4 (dispersion.xml its own 6), on the BVH route (mesh_env;
+              big_env in phase 10), the chunk sweep (oracle_mat, mesh_env under
+              PUPIL_NO_BVH), the instanced route, the matmul-form route
+              (PUPIL_TCL=32 with intersect.MXU_MT) and spectral dispersion.xml:
+              spp 8 from seed 0, count 0 and from seed 2^32 - 3, count 5,
+              each against the eager loop of render_frame at the same seeds
+              and counts (accum and the last sample's albedo, normal and test
+              bit-equal); the counts set to 0 before each batch and read after:
+              one replay launches the route's kernels and none of the other
+              route's, and the batch nothing beyond its warm-up and replays;
+              host ms a sample of the loop and the batch at spp 16 in turns
+              (loop, batch, batch, loop) on mesh_env and oracle_mat, with the
+              capture, instantiation and replay ms apart, the graph's nodes and
+              each form's peak memory; mesh_env under PUPIL_TCL=32 with one leaf
+              start moved 16 rows off its leaf grid: the batch raises after its
+              replays naming bvh_closest (flag 4), render_frame raises too, the
+              intact tables raise nothing
   9. no-jax   neither 'jax' nor any module of the JAX package is in sys.modules
 
 Each kernel's bound_ms is the least time the card could take for the timed
@@ -261,7 +284,7 @@ mesh_env_denoise run (its 5 launches on that frame's buffers); K10 on the
 mesh_env_mt32 run (primary and bounce rays); K11 on the mesh_env_balanced
 run (phase 16c: one launch per balance refresh, timed on the 1080p primary
 rays, its plain version on the 64 tiles it is compared on). The launches of
-phases 17-20 and 22 are checked in those phases and are not in the line. On big_env and
+phases 17-20, 22 and 23 are checked in those phases and are not in the line. On big_env and
 the instanced scene the plain versions are timed on the 65,536-lane subset
 they are compared on (``plain_n`` in chip_smoke.json), the kernels at full N.
 K4's ms, plain_ms, bound_ms and library_ms cover its shared-form calls
@@ -1474,6 +1497,8 @@ def phase_big_env(tmp, bounds, results):
     rec["oracle"] = {"mean_ratio": mean_ratio, "rel_mse": rel_mse, "box_rel_mse": box_rel,
                      "spp": 128, "seconds": secs}
     results["big_env"] = rec
+    # phase 23's batch-against-loop check on the large-scene route
+    check_batch_route("big_env", data, config, cam, BVH_KERNELS, SWEEP_KERNELS[:2], results)
     return launches, (data, config, cam)
 
 
@@ -3570,6 +3595,231 @@ def phase_display(tmp, results) -> None:
     results["display"] = out
 
 
+BATCH_SPP = 8                            # spp of each batch-against-loop check of phase 23
+BATCH_STARTS = ((0, 0), (2**32 - 3, 5))  # (seed0, sample_cnt): from scratch, and across 2^32
+BATCH_TIMED_SPP = 16                     # spp of the timed batches and loops
+BATCH_BUFFERS = ("frame", "albedo", "normal", "test")
+
+
+def eager_samples(data, config, cam, seed0: int, cnt: int, spp: int):
+    """The eager loop the batch stands for: render_frame at seeds (seed0 +
+    i) mod 2^32 and counts cnt + i into a zero accum; the last sample's
+    buffers (copies)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+
+    accum = torch.zeros((config.width * config.height, 3), dtype=torch.float32, device=DEV)
+    for i in range(spp):
+        _, bufs = render_frame(data, cam, (seed0 + i) & 0xFFFFFFFF, cnt + i, accum, config)
+    return {k: bufs[k].clone() for k in BATCH_BUFFERS}
+
+
+def check_batch_route(label, data, config, cam, path, absent, results) -> None:
+    """render_frame_batch at BATCH_SPP from each of BATCH_STARTS against
+    the eager loop of render_frame at the same seeds and counts: accum and
+    the last sample's albedo, normal and test bit-equal; the counts set to
+    0 just before the batch and read just after: one replay launches every
+    kernel of ``path`` and none of ``absent``, and the batch launched the
+    warm-up's and the replays' calls, no more."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.render.integrator import BATCH_STATS, render_frame_batch
+
+    n = config.width * config.height
+    rec = {"film": [config.width, config.height], "depth": config.max_depth,
+           "spectral": config.spectral, "spp": BATCH_SPP, "starts": {}}
+    for seed0, cnt in BATCH_STARTS:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+        _, bufs = render_frame_batch(data, cam, seed0, cnt, accum, config, BATCH_SPP)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        per = dict(BATCH_STATS["launches_per_sample"])
+        want = eager_samples(data, config, cam, seed0, cnt, BATCH_SPP)
+        equal = {k: bool(torch.equal(bufs[k], want[k])) for k in BATCH_BUFFERS}
+        diff = float((bufs["frame"] - want["frame"]).abs().max())
+        log(f"  {label} {config.width}x{config.height} depth {config.max_depth} spp "
+            f"{BATCH_SPP} from seed {seed0}, count {cnt}: {secs:.2f} s, capture "
+            f"{BATCH_STATS['capture_ms']:.1f} ms, instantiate "
+            f"{BATCH_STATS['instantiate_ms']:.1f} ms, {BATCH_STATS['nodes']} nodes; one "
+            f"replay launches {per}; bit-equal to the loop {equal} (max |d frame| {diff:.3e})")
+        require(all(per.get(k, 0) > 0 for k in path) and not any(per.get(k) for k in absent),
+                f"{label}: a replay must launch {path} and not {absent}: {per}")
+        require(launches == {k: v * (BATCH_SPP + 1) for k, v in per.items()},
+                f"{label}: the batch launched {launches}, not the warm-up's and "
+                f"{BATCH_SPP} replays' {per}")
+        require(all(equal.values()), f"{label}: the batch is not bit-equal to the loop: {equal}")
+        require(bool(torch.isfinite(bufs["frame"]).all()) and float(bufs["frame"].mean()) > 0.0,
+                f"{label}: the batch's frame is not finite and non-zero")
+        rec["starts"][f"{seed0},{cnt}"] = {"seconds": secs, "launches": launches,
+                                           "equal": equal, "stats": dict(BATCH_STATS)}
+    results.setdefault("batch", {})[label] = rec
+
+
+def time_batch(label, data, config, cam, results) -> None:
+    """Host ms a sample at BATCH_TIMED_SPP, ended by torch.cuda.synchronize():
+    the eager loop and render_frame_batch in turns (loop, batch, batch,
+    loop), each with its peak device memory; the batch's own warm-up,
+    capture, instantiation and replay ms apart (BATCH_STATS)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.render.integrator import BATCH_STATS, render_frame_batch
+
+    n = config.width * config.height
+    spp = BATCH_TIMED_SPP
+    runs = []
+    for form in ("loop", "batch", "batch", "loop"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if form == "loop":
+            eager_samples(data, config, cam, 0, 0, spp)
+        else:
+            accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+            render_frame_batch(data, cam, 0, 0, accum, config, spp)
+        torch.cuda.synchronize()
+        run = {"form": form, "ms_per_sample": (time.perf_counter() - t0) * 1e3 / spp,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if form == "batch":
+            run.update({k: BATCH_STATS[k] for k in ("warmup_ms", "capture_ms",
+                                                    "instantiate_ms", "replay_ms", "nodes")})
+            run["replay_ms_per_sample"] = BATCH_STATS["replay_ms"] / spp
+        runs.append(run)
+    for r in runs:
+        extra = (f"; warm-up {r['warmup_ms']:.1f}, capture {r['capture_ms']:.1f}, "
+                 f"instantiate {r['instantiate_ms']:.1f}, replays {r['replay_ms']:.1f} ms "
+                 f"({r['replay_ms_per_sample']:.2f} a sample), {r['nodes']} nodes"
+                 if r["form"] == "batch" else "")
+        log(f"  {label} spp {spp} {r['form']}: {r['ms_per_sample']:.2f} ms a sample, peak "
+            f"{r['peak_gb']:.2f} GB{extra}")
+    results.setdefault("batch_timing", {})[label] = runs
+
+
+def fault_tables(data, config, cam):
+    """A copy of the tables with the start of the leaf that most 1080p
+    primary rays hit moved 16 rows off its leaf grid (leaf size 32: the
+    sub-leaf order's 16-byte loads stay aligned, and K1 sets flag 4)."""
+    import dataclasses
+
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel.bvh_traverse import bvh_closest
+
+    tris = data.tris
+    tcl = config.bvh_tcl
+    require(tcl == 32, f"the fault check wants leaves of 32 rows, got {tcl}")
+    _, idx = bvh_closest(*primary_planes(config, cam), tris.packed, tris.bvh_child,
+                         tris.bvh_axis, tris.bvh_boxes, tris.subleaf_rows,
+                         tris.subleaf_boxes, tcl=tcl, depth=tris.bvh_depth)
+    start = int(torch.mode(idx[idx >= 0] // tcl).values) * tcl
+    require(start + 16 <= tris.packed.shape[0] - tcl, "the hit leaf is the table's last")
+    child = tris.bvh_child.clone()
+    at = child == -(start + 1)
+    require(int(at.sum()) == 1, f"leaf {start} is not one child entry")
+    child[at] = -(start + 16 + 1)
+    return dataclasses.replace(data, tris=dataclasses.replace(tris, bvh_child=child)), start
+
+
+def check_batch_fault(results) -> None:
+    """A traversal fault still raises: mesh_env under PUPIL_TCL=32 at
+    1920x1080 with one leaf start off the leaf grid (fault_tables): the
+    batch must raise after its replays, naming bvh_closest; render_frame
+    on the same tables must raise too; the intact tables raise nothing."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.render.integrator import (
+        BATCH_STATS,
+        render_frame,
+        render_frame_batch,
+    )
+
+    with pupil_env("PUPIL_TCL", "32"):
+        data, config, cam = load_tables(MESH_ENV, *FILM, DEV)
+    bad, start = fault_tables(data, config, cam)
+    n = config.width * config.height
+    spp = 2
+    render_frame_batch(data, cam, 0, 0, torch.zeros((n, 3), device=DEV), config, spp)
+    rec = {"leaf_start": start}
+    for form in ("batch", "render_frame"):
+        BATCH_STATS.clear()
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=DEV)
+        try:
+            if form == "batch":
+                render_frame_batch(bad, cam, 0, 0, accum, config, spp)
+            else:
+                render_frame(bad, cam, 0, 0, accum, config)
+            msg = None
+        except RuntimeError as e:
+            msg = str(e)
+        torch.cuda.synchronize()
+        replays = BATCH_STATS.get("replays")
+        log(f"  leaf {start} moved to {start + 16}, {form}: raised {msg!r}"
+            + (f" after {replays} replays" if form == "batch" else ""))
+        code = re.search(r"bvh_closest: traversal fault flag (\d+)", msg or "")
+        require(code is not None and int(code.group(1)) & 4,
+                f"{form}: a leaf start off the grid must raise naming bvh_closest, got {msg!r}")
+        require(form != "batch" or replays == spp,
+                f"the batch must raise after its {spp} replays, not before ({replays})")
+        rec[form] = {"message": msg, "replays": replays}
+    results.setdefault("batch", {})["fault"] = rec
+
+
+def batch_routes(tmp):
+    """The scenes of phase 23 at 1920x1080, one a route, loaded one at a
+    time: (label, tables, the kernels a replay must launch, those it must
+    not, the matmul-form switch)."""
+    from pupiloptixlab_tpu_torch.scene.instanced_grid import write_instanced_scene
+
+    bvh, sweep = BVH_KERNELS, SWEEP_KERNELS
+    yield "mesh_env", lambda: load_tables(MESH_ENV, *FILM, DEV), bvh, sweep[:2], False
+    yield "oracle_mat", lambda: load_tables(ORACLE_MAT, *FILM, DEV), sweep, bvh[:2], False
+    yield ("mesh_env_nobvh", lambda: load_tables(MESH_ENV, *FILM, DEV, no_bvh=True), sweep,
+           bvh[:2], False)
+
+    def instanced():
+        xml = write_instanced_scene(tmp / "batch_instanced", SKY, INST_N, INST_GRID, *FILM,
+                                    max_depth=4)
+        return load_tables(xml, *FILM, DEV)
+
+    yield "instanced", instanced, INST_PATH, bvh[:2] + sweep[:2], False
+
+    def mt32():
+        with pupil_env("PUPIL_TCL", "32"):
+            return load_tables(MESH_ENV, *FILM, DEV)
+
+    yield "mesh_env_mt32", mt32, MT_PATH, ("bvh_closest",) + sweep[:2], True
+    yield "spectral dispersion", lambda: load_tables(DISPERSION, *FILM, DEV), sweep, bvh[:2], False
+
+
+def phase_batch(tmp, results) -> None:
+    """Phase 23: render_frame_batch on every route at 1920x1080, depth 4
+    (dispersion.xml its own 6) against the eager loop (check_batch_route),
+    the host ms a sample of both forms on mesh_env and oracle_mat
+    (time_batch), and a fault raised after the replays (check_batch_fault)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.accel.intersect import uses_mt
+
+    for label, load, path, absent, mt in batch_routes(tmp):
+        data, config, cam = load()
+        with matmul_form(mt):
+            require(uses_mt(data.tris, config) == mt, f"{label}: matmul-form route {not mt}")
+            require(config.spectral == label.startswith("spectral"),
+                    f"{label}: spectral {config.spectral}")
+            check_batch_route(label, data, config, cam, path, absent, results)
+            if label in ("mesh_env", "oracle_mat"):
+                time_batch(label, data, config, cam, results)
+        del data
+        torch.cuda.empty_cache()
+    check_batch_fault(results)
+    torch.cuda.empty_cache()
+
+
 def build(kernels) -> None:
     log("[build] nvcc, one process per source")
     kernels.build_all()
@@ -3699,6 +3949,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["display_seconds"] = time.perf_counter() - t_display
     log(f"[display] {results['display_seconds']:.1f} s")
+    t_batch = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        log("[batch] render_frame_batch (one captured sample, replayed) against the eager "
+            "loop on every route, its timing and a deferred fault")
+        phase_batch(Path(tmp), results)
+    results["batch_seconds"] = time.perf_counter() - t_batch
+    log(f"[batch] {results['batch_seconds']:.1f} s")
 
     foreign = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -4870,23 +5127,51 @@ def main_display(label: str) -> int:
     return 0
 
 
+def main_batch(label: str) -> int:
+    """``--batch``: only phase 23 (phase_batch: render_frame_batch against
+    the eager loop on every route at 1080p, the two forms timed, a fault
+    raised after the replays), on a package that has render_frame_batch.
+    Prints the card's line, then the phase's results as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+
+    log(f"[batch] {label}: package {Path(kernels.__file__).parent}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "label": label}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_batch(Path(tmp), results)
+    results["seconds"] = time.perf_counter() - t0
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def cli() -> int:
     """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
     K3/K4 alone (main_tables); ``--inst LABEL [--package DIR]``: K7/K8 alone
     (main_inst); ``--bvh``: K1/K2/K11 alone (main_bvh); ``--sweep``: K5/K6
     alone (main_sweep); ``--mt``: K10 alone (main_mt); ``--atrous``: K9 alone
-    (main_atrous); ``--display``: phase 22 alone (main_display); each with
-    the package imported from DIR."""
+    (main_atrous); ``--display``: phase 22 alone (main_display); ``--batch``:
+    phase 23 alone (main_batch); each with the package imported from DIR."""
     args = sys.argv[1:]
     if not args:
         return main()
     modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh,
              "--sweep": main_sweep, "--mt": main_mt, "--atrous": main_atrous,
-             "--display": main_display}
+             "--display": main_display, "--batch": main_batch}
     if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
         print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL | "
-              "--sweep LABEL | --mt LABEL | --atrous LABEL | --display LABEL] "
+              "--sweep LABEL | --mt LABEL | --atrous LABEL | --display LABEL | "
+              "--batch LABEL] "
               "[--package DIR]",
               file=sys.stderr)
         return 2

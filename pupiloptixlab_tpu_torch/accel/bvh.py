@@ -258,3 +258,20 @@ def bvh_depth(child: np.ndarray) -> int:
             if cid > 0:
                 depth[cid] = depth[i] + 1
     return int(depth.max()) + 1 if ids.shape[0] else 0
+
+
+def max_stack_depth(child: np.ndarray) -> int:
+    """Worst-case traversal stack bound: up to 8 pushes per level of the
+    8-ary tree (pop one, push its live children). The reference's bound
+    (its accel/bvh.py:269), 7 * depth + 8 over the levels below the root;
+    the kernels' own rule is ``bvh_traverse.stack_fits``."""
+    ids = np.asarray(child).reshape(-1, 8)
+    depth = np.zeros(ids.shape[0], np.int32)
+    peak = 8
+    for i in range(ids.shape[0]):
+        for cid in ids[i]:
+            if cid > 0:
+                depth[cid] = depth[i] + 1
+                # pop one, push <= 8 -> <= 7 net per level plus the burst
+                peak = max(peak, 7 * (int(depth[i]) + 1) + 8)
+    return peak

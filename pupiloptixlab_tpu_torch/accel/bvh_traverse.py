@@ -61,10 +61,17 @@ once for the lanes that share it; the filter only rejects pairs whose
 sign tests must fail
 (``mt_filter_rejects``), and the exact test's 19 products give the 40
 terms' values (``mt_lean_hit_t``).
+
+Every wrapper of K1, K2, K7, K8, K10 and K11 reads its kernel's fault
+flag after the launch and raises on it. Inside ``deferred_flags`` (the
+capture of ``render_frame_batch``'s sample) it ORs the flag into a batch
+flag on the card instead, which ``raise_on_flags`` reads once, after the
+replays.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import torch
@@ -146,12 +153,50 @@ def _check_baked_subleaf(name, tri, subleaf_rows, subleaf_boxes, tcl):
                              f"{t.device}")
 
 
+# the kernels that raise a fault flag, each a slot of the deferred batch flag
+FLAGGED = ("bvh_closest", "bvh_closest_count", "bvh_anyhit", "bvh_closest_inst",
+           "bvh_anyhit_inst", "bvh_closest_mt")
+_deferred = None  # the (len(FLAGGED),) int32 batch flag inside deferred_flags
+
+
+def _fault_text(name, code):
+    return (f"{name}: traversal fault flag {code} (1 = visit cap exceeded, 2 = stack "
+            "overflow, 4 = a leaf start off the leaf grid)")
+
+
+@contextlib.contextmanager
+def deferred_flags(device):
+    """Inside: each traversal wrapper ORs its fault flag into its kernel's
+    slot (``FLAGGED``) of one int32 tensor on ``device``, in a kernel of
+    the stream, instead of reading it on the host, which a stream being
+    captured into a CUDA graph forbids. The tensor is made and zeroed here,
+    once, outside any graph, so a fault in any replay survives every later
+    one. Yields it; ``raise_on_flags`` reads it once, at the end."""
+    global _deferred
+    flags = torch.zeros(len(FLAGGED), dtype=torch.int32, device=device)
+    _deferred = flags
+    try:
+        yield flags
+    finally:
+        _deferred = None
+
+
+def raise_on_flags(flags):
+    """One read of a deferred batch flag: raises naming every kernel whose
+    slot is set, with ``_raise_on_flag``'s text."""
+    faults = [_fault_text(name, code) for name, code in zip(FLAGGED, flags.tolist()) if code]
+    if faults:
+        raise RuntimeError("; ".join(faults))
+
+
 def _raise_on_flag(name, err):
+    if _deferred is not None:
+        slot = FLAGGED.index(name)
+        _deferred[slot:slot + 1].bitwise_or_(err)
+        return
     code = int(err.item())
     if code:
-        raise RuntimeError(f"{name}: traversal fault flag {code} (1 = visit cap "
-                           "exceeded, 2 = stack overflow, 4 = a leaf start off the "
-                           "leaf grid)")
+        raise RuntimeError(_fault_text(name, code))
 
 
 def bvh_closest(rox, roy, roz, rdx, rdy, rdz, tmin, tmax,

@@ -11,15 +11,7 @@ from __future__ import annotations
 
 import torch
 
-
-def aces_tonemap(color: torch.Tensor, adapted_lum: float = 1.0) -> torch.Tensor:
-    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
-    x = color * adapted_lum
-    return (x * (a * x + b)) / (x * (c * x + d) + e)
-
-
-def gamma_correct(color: torch.Tensor, gamma: float = 2.2) -> torch.Tensor:
-    return torch.pow(torch.clamp(color, min=0.0), 1.0 / gamma)
+from pupiloptixlab_tpu_torch.render.sampling import aces_tonemap, gamma_correct
 
 
 def aces_gamma_to_display(

@@ -14,7 +14,9 @@ on its own exactly as the plain PyTorch versions do, so the traversal
 kernels return bit-identical hit distances.
 
 ``LAUNCHES[name]`` counts the launches of each kernel; a wrapper adds
-one where it launches its kernel and nowhere else.
+one where it launches its kernel and nowhere else. A wrapper called while
+a CUDA graph is captured launches nothing: ``captured_launches`` takes
+those calls back out, and ``add_launches`` counts them once a replay.
 
 The launch path is kept short, since the port issues thousands of launches
 a frame: ``launcher`` returns a ctypes function bound once (one dict lookup
@@ -27,6 +29,7 @@ object), so it still honours a caller's ``torch.cuda.stream(...)``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -93,6 +96,29 @@ BUILD_SECONDS = 0.0
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around the capture of a CUDA graph: yields a dict that, on exit,
+    holds the wrapper calls made inside per kernel (the launches one replay
+    makes), and leaves ``LAUNCHES`` as it was before (the capture itself
+    ran nothing)."""
+    before = dict(LAUNCHES)
+    captured: dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        captured.update({k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                         if LAUNCHES[k] != before[k]})
+        LAUNCHES.update(before)
+
+
+def add_launches(per_replay: dict, replays: int) -> None:
+    """Count ``replays`` replays of a graph whose capture made the wrapper
+    calls ``per_replay`` (from ``captured_launches``)."""
+    for k, v in per_replay.items():
+        LAUNCHES[k] += v * replays
 
 
 def _nvcc() -> str:
@@ -178,6 +204,18 @@ def stream_ptr(device) -> int:
             lambda index: torch.cuda.current_stream(index).cuda_stream)
     index = device if isinstance(device, int) else device.index
     return _raw_stream(index if index is not None else -1)
+
+
+def graph_nodes(raw_graph: int) -> int:
+    """The node count of a captured CUDA graph (its cudaGraph_t as an int:
+    ``torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()``), from
+    libcuda's ``cuGraphGetNodes``."""
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(raw_graph), None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return count.value
 
 
 def check(rc: int, name: str) -> None:

@@ -53,3 +53,22 @@ def conductor_reflectance_rgb(eta: Vec3, k: Vec3, cos_theta_i) -> Vec3:
         conductor_reflectance(eta.y, k.y, cos_theta_i),
         conductor_reflectance(eta.z, k.z, cos_theta_i),
     )
+
+
+def diffuse_reflectance(eta):
+    """Hemispherical diffuse Fresnel fit (fresnel.h:58-85), in the
+    reference's float32 arithmetic: true divisions (``c / eta`` in torch
+    is a reciprocal and a product) and its integer powers' products."""
+    low = -1.4399 * eta * eta + 0.7099 * eta + 0.6681 + torch.full_like(eta, 0.0636) / eta
+    ie = 1.0 / eta
+    ie2 = ie * ie
+    ie4 = ie2 * ie2
+    high = (
+        0.919317
+        - 3.4793 * ie
+        + 6.75335 * ie2
+        - 7.80989 * (ie * ie2)
+        + 4.98554 * ie4
+        - 1.36881 * (ie * ie4)
+    )
+    return torch.where(eta < 1.0, low, high)

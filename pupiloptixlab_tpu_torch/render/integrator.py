@@ -29,16 +29,26 @@ its use site, a dispersive transmission collapses the path to its hero,
 and the sensor integrates back to RGB before the AOVs are written. The
 value sanitizer (``config.debug_checks``, utils/debug.py) adds a report
 of per-stage counts of bad values to the buffers.
+
+The offline renderer (``render``) goes through ``render_frame_batch``, the
+counterpart of the reference's single-dispatch batch: on the card one
+sample, seed and count read from 0-dim device tensors that the sample
+itself advances, is captured into a CUDA graph and replayed once a sample,
+and the traversal kernels' fault flags are read once, after the last
+replay. ``render_frame``, which the passes call once a frame, stays eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
 
+from pupiloptixlab_tpu_torch import kernels
+from pupiloptixlab_tpu_torch.accel import bvh_traverse
 from pupiloptixlab_tpu_torch.accel.gather import gather_cols
 from pupiloptixlab_tpu_torch.accel.intersect import intersect_any, intersect_closest
 from pupiloptixlab_tpu_torch.flatten.types import (
@@ -79,16 +89,12 @@ def uses_blocks(config) -> bool:
     )
 
 
-@functools.lru_cache(maxsize=8)
-def _block_pix_np(width: int, height: int) -> np.ndarray:
-    hb, wb = height // _BLOCK_H, width // _BLOCK_W
-    ids = np.arange(height * width, dtype=np.int32).reshape(hb, _BLOCK_H, wb, _BLOCK_W)
-    return ids.transpose(0, 2, 1, 3).reshape(-1)
-
-
 def _block_pix(width: int, height: int, device) -> torch.Tensor:
-    """(n,) pixel ids in (8 x 128)-block lane order."""
-    return torch.from_numpy(_block_pix_np(width, height)).to(device)
+    """(n,) int32 pixel ids in (8 x 128)-block lane order, made on
+    ``device`` (no host copy, which a captured CUDA graph could not hold)."""
+    hb, wb = height // _BLOCK_H, width // _BLOCK_W
+    ids = torch.arange(height * width, dtype=torch.int32, device=device)
+    return ids.reshape(hb, _BLOCK_H, wb, _BLOCK_W).permute(0, 2, 1, 3).reshape(-1)
 
 
 def _block_decode(v: torch.Tensor, width: int, height: int) -> torch.Tensor:
@@ -103,9 +109,9 @@ def _block_decode(v: torch.Tensor, width: int, height: int) -> torch.Tensor:
 _TILE = _BLOCK_H * _BLOCK_W  # lanes per tile of the block lane order
 
 
-def lane_pixels(config, tile_perm=None, slab=None, device="cpu") -> torch.Tensor:
-    """(n,) pixel ids of the lanes a frame traces, in lane order: every
-    pixel of the film, or slab ``(k, d)`` of them. Block route: the
+def lane_pixels(config, tile_perm=None, slab=None, *, device) -> torch.Tensor:
+    """(n,) pixel ids of the lanes a frame traces, in lane order, on
+    ``device``: every pixel of the film, or slab ``(k, d)`` of them. Block route: the
     (8 x 128)-block order, its tiles reordered by ``tile_perm``; row-major
     route: pixel order (``tile_perm`` ignored, as the reference does)."""
     w, h = config.width, config.height
@@ -147,9 +153,10 @@ def lanes_to_pixels(v: torch.Tensor, config, tile_perm=None) -> torch.Tensor:
     return _block_decode(v, w, h)
 
 
-def primary_rays(camera: CameraBlock, config: RenderConfig, seed: int, pix: torch.Tensor):
+def primary_rays(camera: CameraBlock, config: RenderConfig, seed, pix: torch.Tensor):
     """The camera rays of the lanes ``pix`` (pixel ids, as ``lane_pixels``
-    gives them) at ``seed``: each pixel's stream starts at (pixel id, seed)
+    gives them) at ``seed`` (an int, or a 0-dim integer tensor on the
+    lanes' device: ``rng.tea_init``): each pixel's stream starts at (pixel id, seed)
     and its first two draws jitter the ray. Returns the streams' state after
     those draws and the rays (ro, rd, tmin, tmax), tmin = RAY_OFFSET,
     tmax = MAX_DISTANCE: what ``render_sample`` traces first, and what the
@@ -318,19 +325,20 @@ def _identity(v):
 def render_sample(
     scene: SceneData,
     camera: CameraBlock,
-    seed: int,
+    seed,
     config: RenderConfig,
     tile_perm=None,
     slab=None,
 ):
-    """Trace one sample per pixel; returns a dict of flat (N, *) buffers:
+    """Trace one sample per pixel at ``seed`` (as ``primary_rays`` takes
+    it); returns a dict of flat (N, *) buffers:
     radiance, albedo, normal, test, in row-major pixel order, and with
     ``config.debug_checks`` the sanitizer's report. With ``slab`` (k, d)
     only the lanes ``lane_pixels(config, tile_perm, slab)`` are traced, and
     the buffers are (N / d, *) in their lane order."""
     em, tex = scene.emitters, scene.textures
     dev = scene.tris.packed.device
-    pix = lane_pixels(config, tile_perm, slab, dev)
+    pix = lane_pixels(config, tile_perm, slab, device=dev)
     n = pix.shape[0]
     state, (ro, rd, tmin, tmax) = primary_rays(camera, config, seed, pix)
     spectral = config.spectral
@@ -471,6 +479,128 @@ def render_frame(
     return accum, buffers
 
 
+def blend_weight(cnt: torch.Tensor) -> torch.Tensor:
+    """The blend weight ``1 / (float32(cnt) + 1)`` of integer sample
+    counts, on their device. Float32 division is correctly rounded on the
+    host and on the card, so it equals ``blend``'s host weight bit for bit
+    at every count."""
+    return torch.reciprocal(cnt.to(torch.float32) + 1.0)
+
+
+def _blend_on_device(accum: torch.Tensor, radiance: torch.Tensor, cnt: torch.Tensor,
+                     accumulate: bool) -> None:
+    """``blend`` with the sample count a 0-dim integer tensor on accum's
+    device, in the reference's form (its integrator.py:560-567):
+    ``where(cnt > 0, acc + (radiance - acc) * blend_weight(cnt),
+    radiance)``; bit-equal to ``blend`` at the same count."""
+    if accumulate:
+        t = blend_weight(cnt)
+        accum.copy_(torch.where(cnt > 0, accum + (radiance - accum) * t, radiance))
+    else:
+        accum.copy_(radiance)
+
+
+def _batch_sample(scene, camera, seed, cnt, accum, config) -> dict:
+    """One sample of ``render_frame_batch`` at ``seed``, blended into
+    ``accum`` at count ``cnt`` (0-dim int64 tensors on accum's device,
+    read by the kernels), then ``seed`` and ``cnt`` one up for the next
+    sample. Returns the sample's albedo, normal and test buffers."""
+    out = render_sample(scene, camera, seed, config)
+    _blend_on_device(accum, out["radiance"], cnt, config.accumulate)
+    seed.add_(1)
+    cnt.add_(1)
+    return {"albedo": out["albedo"], "normal": out["normal"], "test": out["test"]}
+
+
+# what the last render_frame_batch on the card did, filled once its replays
+# are issued: their number, the host ms of its warm-up, capture and
+# instantiation, the graph's nodes, one replay's launches; after the flag
+# read (which waits for the card) the replays' host ms
+BATCH_STATS: dict = {}
+
+
+def _replay_batch(scene, camera, seed, cnt, accum, config, spp) -> dict:
+    """``spp`` samples on the card: one warm-up sample, eager on a side
+    stream into a scratch accum (it builds the kernels and their tables and
+    fills the allocator), then one sample captured into a CUDA graph and
+    replayed ``spp`` times. The graph advances ``seed`` and ``cnt`` itself,
+    so replay i is sample i. The traversal wrappers defer their fault flags
+    to one batch flag (``bvh_traverse.deferred_flags``), warm-up included,
+    read once after the last replay; one replay's launches count ``spp``
+    times. Nothing falls back: a failed capture or replay raises. Returns
+    clones of the last sample's buffers, so that nothing returned lives in
+    the graph's memory pool, which is released here."""
+    dev = accum.device
+    t0 = time.perf_counter()
+    with bvh_traverse.deferred_flags(dev) as flags:
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _batch_sample(scene, camera, seed.clone(), cnt.clone(), accum.clone(), config)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        t1 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with kernels.captured_launches() as per_sample:
+            with torch.cuda.graph(graph):
+                t2 = time.perf_counter()
+                bufs = _batch_sample(scene, camera, seed, cnt, accum, config)
+        t3 = time.perf_counter()
+        graph.instantiate()
+        t4 = time.perf_counter()
+        nodes = kernels.graph_nodes(graph.raw_cuda_graph())
+        for _ in range(spp):
+            graph.replay()
+        kernels.add_launches(per_sample, spp)
+    BATCH_STATS.clear()
+    BATCH_STATS.update(replays=spp, warmup_ms=(t1 - t0) * 1e3, capture_ms=(t3 - t2) * 1e3,
+                       instantiate_ms=(t4 - t3) * 1e3, nodes=nodes,
+                       launches_per_sample=dict(per_sample))
+    bvh_traverse.raise_on_flags(flags)
+    BATCH_STATS["replay_ms"] = (time.perf_counter() - t4) * 1e3
+    bufs = {k: v.clone() for k, v in bufs.items()}
+    graph.reset()
+    return bufs
+
+
+def render_frame_batch(
+    scene: SceneData,
+    camera: CameraBlock,
+    seed0,
+    sample_cnt,
+    accum: torch.Tensor,
+    config: RenderConfig,
+    spp: int,
+):
+    """``spp`` progressive samples (the reference's one-dispatch batch, its
+    integrator.py:544-583). Sample i traces at seed ``(seed0 + i) mod
+    2^32`` and blends at count ``sample_cnt + i`` (at a count <= 0 the
+    accum takes the sample as it is); ``accum`` ((N, 3) float32) is updated
+    in place, as the reference donates it. Returns (accum, buffers): the
+    last sample's frame (= accum), albedo, normal and test, and no
+    sanitizer report (``config.debug_checks`` is ignored, as the
+    reference's batch carries none).
+
+    On the card the samples are one captured CUDA graph replayed ``spp``
+    times (``_replay_batch``: a traversal fault raises after the last
+    replay, naming its kernel); on the CPU the same sample runs ``spp``
+    times eagerly. Either way each sample is render_frame's, bit for bit."""
+    dev = accum.device
+    if config.debug_checks:
+        config = dataclasses.replace(config, debug_checks=False)
+    with torch.inference_mode():
+        seed = torch.tensor(int(seed0) & rng.M32, dtype=torch.int64, device=dev)
+        cnt = torch.tensor(int(sample_cnt), dtype=torch.int64, device=dev)
+        if spp <= 0:
+            bufs = {"albedo": torch.zeros_like(accum), "normal": torch.zeros_like(accum),
+                    "test": torch.zeros(accum.shape[0], dtype=torch.float32, device=dev)}
+        elif dev.type == "cuda":
+            bufs = _replay_batch(scene, camera, seed, cnt, accum, config, spp)
+        else:
+            for _ in range(spp):
+                bufs = _batch_sample(scene, camera, seed, cnt, accum, config)
+    return accum, {"frame": accum, **bufs}
+
+
 def render(
     scene: SceneData,
     camera: CameraBlock,
@@ -478,12 +608,13 @@ def render(
     spp: int,
     seed0: int = 0,
 ):
-    """Render ``spp`` progressive samples; returns (h, w, 3) radiance. The
-    per-sample seeds and blend equal a loop of render_frame calls."""
+    """Render ``spp`` progressive samples; returns (h, w, 3) radiance,
+    through ``render_frame_batch`` from count 0 as the reference's does (on
+    the card every sample is one replay of one captured graph). Equal, bit
+    for bit, to a loop of render_frame calls at seeds seed0 + i and counts
+    i."""
     n = config.width * config.height
-    dev = scene.tris.packed.device
     with torch.inference_mode():
-        accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        for i in range(spp):
-            render_frame(scene, camera, seed0 + i, i, accum, config)
+        accum = torch.zeros((n, 3), dtype=torch.float32, device=scene.tris.packed.device)
+        render_frame_batch(scene, camera, seed0, 0, accum, config, spp)
     return accum.reshape(config.height, config.width, 3)

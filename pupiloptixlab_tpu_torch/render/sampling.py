@@ -2,8 +2,9 @@
 
 Mirrors pupiloptixlab_tpu/render/sampling.py (optix/util.h parity):
 uniform triangle/sphere/hemisphere and cosine-hemisphere sampling with
-pdfs, Reflect/Refract, the Pixar ONB, sphere uv, luminance and the
-balance-heuristic ``mis_weight(x, y) = x / (x + y)``.
+pdfs, Reflect/Refract, the Pixar ONB, sphere uv, luminance, the
+balance-heuristic ``mis_weight(x, y) = x / (x + y)``, and the ACES tone
+map and gamma encode that display/tonemap.py applies.
 """
 
 from __future__ import annotations
@@ -131,3 +132,13 @@ def sphere_texcoord(local_p: Vec3) -> Vec2:
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     theta = torch.acos(torch.clamp(local_p.z, -1.0, 1.0))
     return Vec2(phi * 0.5 / math.pi, theta / math.pi)
+
+
+def aces_tonemap(color: torch.Tensor, adapted_lum: float = 1.0) -> torch.Tensor:
+    a, b, c, d, e = 2.51, 0.03, 2.43, 0.59, 0.14
+    x = color * adapted_lum
+    return (x * (a * x + b)) / (x * (c * x + d) + e)
+
+
+def gamma_correct(color: torch.Tensor, gamma: float = 2.2) -> torch.Tensor:
+    return torch.pow(torch.clamp(color, min=0.0), 1.0 / gamma)

@@ -45,7 +45,7 @@ def mesh_env():
     data, config = flatten_scene(scene, device="cpu")
     cam = camera_block_from_scene(scene, device="cpu")
     n = W * H
-    _, (ro, rd, tmin, tmax) = primary_rays(cam, config, 0, lane_pixels(config))
+    _, (ro, rd, tmin, tmax) = primary_rays(cam, config, 0, lane_pixels(config, device="cpu"))
     planes = [p.expand(n).contiguous() for p in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
     planes += [tmin, tmax]
     tris = data.tris

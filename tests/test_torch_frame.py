@@ -203,7 +203,8 @@ def test_port_never_imports_jax():
     """In a fresh interpreter the port loads mesh_env with its own scene
     layer, flattens it, renders one 128x8 frame, and steps a System with a
     PTPass and a DenoisePass on oracle_mat (the denoiser and the matmul-form
-    leaf test's modules come in through them), and imports the multi-device
+    leaf test's modules come in through them), imports the offline batch
+    (``render_frame_batch``, with its CUDA graph capture), and imports the multi-device
     modules (parallel/ with its dry run), spectral transport, the
     sanitizer, ReSTIR, the wavefront engine, checkpointing, profiling and
     the display clients, and steps a ComputePass under the web client, all
@@ -217,7 +218,7 @@ def test_port_never_imports_jax():
         import torch
         from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
         from pupiloptixlab_tpu_torch.passes import DenoisePass, PTPass
-        from pupiloptixlab_tpu_torch.render.integrator import render_frame
+        from pupiloptixlab_tpu_torch.render.integrator import render_frame, render_frame_batch
         from pupiloptixlab_tpu_torch.scene import load_scene
         from pupiloptixlab_tpu_torch.system import System
         scene = load_scene({str(DATA / "mesh_env.xml")!r})

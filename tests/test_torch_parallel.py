@@ -106,7 +106,7 @@ def test_lane_slab_equals_the_frames_lanes(route, frame_tables, single):
         whole = _frame(data, config, cam)
     slab = (1, 4)
     got = _frame(data, config, cam, tile_perm=perm, slab=slab)
-    pix = lane_pixels(config, perm, slab).numpy()
+    pix = lane_pixels(config, perm, slab, device="cpu").numpy()
     if route == "row_major":
         assert np.array_equal(pix, np.arange(64, 128))
     for k in dryrun.FRAME_KEYS:
@@ -116,9 +116,9 @@ def test_lane_slab_equals_the_frames_lanes(route, frame_tables, single):
 def test_slab_and_tile_perm_are_checked(frame_tables):
     _, config, _ = frame_tables
     with pytest.raises(ValueError, match="tile indices"):
-        lane_pixels(config, np.arange(4))
+        lane_pixels(config, np.arange(4), device="cpu")
     with pytest.raises(ValueError, match="equal slabs"):
-        lane_pixels(config, None, (0, 3))
+        lane_pixels(config, None, (0, 3), device="cpu")
 
 
 def test_tree_walk_matches_brute_sweep_on_rays_along_box_faces(frame_tables, single):
@@ -171,7 +171,7 @@ def test_spawned_accumulation_stays_on_its_rank(spawned, single, frame_tables):
     _, config, _ = frame_tables
     for mode, perm in (("sharded", None), ("balanced", spawned["perm"])):
         for r, acc in enumerate(spawned[f"{mode}_accum"]):
-            pix = lane_pixels(config, perm, (r, RANKS)).numpy()
+            pix = lane_pixels(config, perm, (r, RANKS), device="cpu").numpy()
             np.testing.assert_array_equal(acc, single["frame_frame"][pix],
                                           err_msg=f"{mode} rank {r}")
 
