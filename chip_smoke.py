@@ -10,6 +10,7 @@ K10 alone:                        python3 chip_smoke.py --mt LABEL [--package DI
 K9 alone:                         python3 chip_smoke.py --atrous LABEL [--package DIR]
 Phase 22 alone:                   python3 chip_smoke.py --display LABEL [--package DIR]
 Phase 23 alone:                   python3 chip_smoke.py --batch LABEL [--package DIR]
+K12 and K13 alone:                python3 chip_smoke.py --bsdf LABEL
 (--package DIR imports the package from another tree, for example a parent
 commit unpacked with git archive, to time its kernels under this script's
 timing in the same call; main_tables, main_inst, main_bvh, main_sweep,
@@ -5154,24 +5155,195 @@ def main_batch(label: str) -> int:
     return 0
 
 
+# --bsdf: the planes each type's lane loads in csrc/bsdf.cu (load_mat), and
+# their bytes: reflectance, specular, transmittance, eta3 + k3, alpha +
+# alpha_v, eta, int_fdr + ssw + nonlinear
+BSDF_FIELD_BYTES = {"refl": 12, "spec": 12, "trans": 12, "cond": 24, "alpha": 8, "eta": 4,
+                    "plast": 9}
+BSDF_TYPE_FIELDS = {
+    "eval": {1: ("refl",), 3: ("spec", "trans", "alpha", "eta"), 5: ("spec", "cond", "alpha"),
+             6: ("refl", "eta", "plast"), 7: ("refl", "spec", "alpha", "eta", "plast")},
+    "sample": {1: ("refl",), 2: ("spec", "trans", "eta"), 3: ("spec", "trans", "alpha", "eta"),
+               4: ("spec", "cond"), 5: ("spec", "cond", "alpha"),
+               6: ("refl", "spec", "eta", "plast"), 7: ("refl", "spec", "alpha", "eta", "plast")},
+}
+# a typed lane's other reads: wo and wi (eval); wo and the uniforms its type draws (sample)
+BSDF_LANE_BYTES = {"eval": {t: 24 for t in (1, 3, 5, 6, 7)},
+                   "sample": {1: 20, 2: 16, 3: 24, 4: 12, 5: 20, 6: 24, 7: 24}}
+BSDF_OUT_BYTES = {"eval": 16, "sample": 32}  # f, pdf; and wi, lobe
+
+
+def bsdf_lane_types(kind, b, mat_types):
+    """Each lane's type as the kernel takes it (the wrapper's rule)."""
+    import torch
+
+    from pupiloptixlab_tpu_torch.render import bsdf
+
+    force, mask = bsdf._lane_rule(kind, mat_types)
+    if force:
+        return torch.full_like(b.mtype, force), True
+    m = b.mtype
+    ok = (m >= 1) & (m <= 7) & (((mask >> m.clamp(0, 30)) & 1) == 1)
+    return torch.where(ok, m, 0), False
+
+
+def bsdf_call_bytes(kind, b, mat_types) -> tuple[int, dict]:
+    """The bytes one K12 / K13 call reads and writes on these lanes: every
+    lane's outputs and (unless one type is forced) its mtype, and each typed
+    lane's planes as its type loads them; and the lanes of each type."""
+    import torch
+
+    typ, forced = bsdf_lane_types(kind, b, mat_types)
+    n = typ.shape[0]
+    counts = torch.bincount(typ.long(), minlength=8).tolist()
+    total = n * (BSDF_OUT_BYTES[kind] + (0 if forced else 4))
+    for t, fields in BSDF_TYPE_FIELDS[kind].items():
+        total += counts[t] * (BSDF_LANE_BYTES[kind][t] + sum(BSDF_FIELD_BYTES[f] for f in fields))
+    return total, {str(t): c for t, c in enumerate(counts) if c}
+
+
+def capture_bsdf_calls(data, config, cam):
+    """The arguments of every bsdf.evaluate and bsdf.sample call of one
+    render_frame, in call order, and the frame's K12 / K13 launches."""
+    import torch
+
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.render import bsdf
+    from pupiloptixlab_tpu_torch.render.integrator import render_frame
+
+    calls = []
+    evaluate, sample = bsdf.evaluate, bsdf.sample
+
+    def rec_eval(*a):
+        calls.append(("eval", a))
+        return evaluate(*a)
+
+    def rec_sample(*a):
+        calls.append(("sample", a))
+        return sample(*a)
+
+    accum = torch.zeros((config.width * config.height, 3), dtype=torch.float32, device=DEV)
+    kernels.reset_launches()
+    bsdf.evaluate, bsdf.sample = rec_eval, rec_sample
+    try:
+        render_frame(data, cam, 0, 0, accum, config)
+    finally:
+        bsdf.evaluate, bsdf.sample = evaluate, sample
+    torch.cuda.synchronize()
+    return calls, {k: kernels.LAUNCHES[k] for k in ("bsdf_eval", "bsdf_sample")}
+
+
+def device_ops(fn) -> int:
+    """Device operations one call of ``fn`` issues (torch.profiler, CUDA
+    activity alone)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def main_bsdf(label: str) -> int:
+    """``--bsdf``: K12 (bsdf_eval) and K13 (bsdf_sample) alone, on the
+    arguments of every bsdf.evaluate / bsdf.sample call of one 1080p depth-4
+    render_frame of oracle_mat and of mesh_env: each call bit-equal to the
+    plain version on the card (every output, by bit pattern, NaN against NaN
+    equal), timed (CUDA events around 20 calls, device and issue time apart),
+    its byte bound at the HBM rate, the plain version's time and device
+    operations; the frame's launches; the ptxas lines. Prints the card's
+    line, then the results as one JSON line (also chiprun_out/bsdf_LABEL.json)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available", file=sys.stderr)
+        return 3
+    smi = nvidia_smi_line()
+    from pupiloptixlab_tpu_torch import kernels
+    from pupiloptixlab_tpu_torch.render import bsdf
+    from pupiloptixlab_tpu_torch.render.vec import Vec3
+
+    log(f"[bsdf] {label}: package {Path(kernels.__file__).parent}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
+    build(kernels)
+    results: dict = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                     "label": label, "registers": ptxas_lines(kernels, "bsdf"), "scenes": {}}
+
+    def flat(res):
+        return [p for r in res for p in (r if isinstance(r, Vec3) else (r,))]
+
+    def lanes_off(got, want) -> int:
+        off = 0
+        for g, w in zip(flat(got), flat(want)):
+            if g.dtype == torch.float32:
+                off += int(((g.view(torch.int32) != w.view(torch.int32))
+                            & ~(g.isnan() & w.isnan())).sum())
+            else:
+                off += int((g != w).sum())
+        return off
+
+    with torch.inference_mode():
+        for name, xml in (("oracle_mat", ORACLE_MAT), ("mesh_env", MESH_ENV)):
+            data, config, cam = load_tables(xml, *FILM, DEV)
+            calls, launches = capture_bsdf_calls(data, config, cam)
+            require(launches == {"bsdf_eval": config.max_depth - 1,
+                                 "bsdf_sample": config.max_depth - 1},
+                    f"--bsdf {name}: one K12 and one K13 launch a bounce: {launches}")
+            recs = []
+            for kind, args in calls:
+                kern = bsdf.evaluate if kind == "eval" else bsdf.sample
+                plain = bsdf.evaluate_plain if kind == "eval" else bsdf.sample_plain
+                off = lanes_off(kern(*args), plain(*args))
+                require(off == 0, f"--bsdf {name} {kind}: {off} output lanes off the plain version")
+                nbytes, types = bsdf_call_bytes(kind, args[0], args[-1])
+                rec = {"kind": kind, "lanes": int(args[1].z.shape[0]), "lane_types": types,
+                       "lanes_off": off, "bytes": nbytes,
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "ms": cuda_time_ms(lambda: kern(*args), reps=20),
+                       "plain_ms": cuda_time_ms(lambda: plain(*args), reps=3)}
+                rec["device_ms"], rec["issue_ms"] = split_time_ms(lambda: kern(*args))
+                rec["plain_issue_ms"] = host_time_ms(lambda: plain(*args))
+                log(f"  {name} {kind}: {rec}")
+                recs.append(rec)
+            first = {kind: args for kind, args in reversed(calls)}
+            ops = {kind: {"kernel": device_ops(lambda: (bsdf.evaluate if kind == "eval"
+                                                        else bsdf.sample)(*args)),
+                          "plain": device_ops(lambda: (bsdf.evaluate_plain if kind == "eval"
+                                                       else bsdf.sample_plain)(*args))}
+                   for kind, args in first.items()}
+            log(f"  {name} device operations a call (first bounce): {ops}")
+            results["scenes"][name] = {"mat_types": list(config.mat_types),
+                                       "launches_per_frame": launches, "calls": recs,
+                                       "device_ops_per_call": ops}
+            del calls, data
+    (REPO / "chiprun_out").mkdir(exist_ok=True)
+    (REPO / "chiprun_out" / f"bsdf_{label}.json").write_text(json.dumps(results, indent=1))
+    print(smi)
+    print(json.dumps(results))
+    return 0
+
+
 def cli() -> int:
     """No arguments: the whole smoke run. ``--tables LABEL [--package DIR]``:
     K3/K4 alone (main_tables); ``--inst LABEL [--package DIR]``: K7/K8 alone
     (main_inst); ``--bvh``: K1/K2/K11 alone (main_bvh); ``--sweep``: K5/K6
     alone (main_sweep); ``--mt``: K10 alone (main_mt); ``--atrous``: K9 alone
     (main_atrous); ``--display``: phase 22 alone (main_display); ``--batch``:
-    phase 23 alone (main_batch); each with the package imported from DIR."""
+    phase 23 alone (main_batch); each with the package imported from DIR;
+    ``--bsdf LABEL``: K12/K13 alone (main_bsdf)."""
     args = sys.argv[1:]
     if not args:
         return main()
     modes = {"--tables": main_tables, "--inst": main_inst, "--bvh": main_bvh,
              "--sweep": main_sweep, "--mt": main_mt, "--atrous": main_atrous,
-             "--display": main_display, "--batch": main_batch}
+             "--display": main_display, "--batch": main_batch, "--bsdf": main_bsdf}
     if args[0] not in modes or len(args) not in (2, 4) or (
             len(args) == 4 and args[2] != "--package"):
         print("usage: chip_smoke.py [--tables LABEL | --inst LABEL | --bvh LABEL | "
               "--sweep LABEL | --mt LABEL | --atrous LABEL | --display LABEL | "
-              "--batch LABEL] "
+              "--batch LABEL | --bsdf LABEL] "
               "[--package DIR]",
               file=sys.stderr)
         return 2

@@ -83,6 +83,8 @@ KERNELS = {
                      [_P] * 8 + [_P, _P, _I, _I, _I, _P, _P]),
     "atrous_iter": ("atrous", "launch_atrous_iter",
                     [_P] * 4 + [_I] * 5 + [_F, _F, _I, _F, _P]),
+    "bsdf_eval": ("bsdf", "launch_bsdf_eval", [_P] * 28 + [_I] * 3 + [_P] * 2),
+    "bsdf_sample": ("bsdf", "launch_bsdf_sample", [_P] * 28 + [_I] * 3 + [_P] * 3),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

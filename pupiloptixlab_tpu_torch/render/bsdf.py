@@ -1,10 +1,17 @@
-"""The seven BSDFs with branchless dense-table dispatch (plane layout).
+"""The seven BSDFs (plane layout).
 
 Mirrors pupiloptixlab_tpu/render/bsdf.py (render/material/bsdf/*.h
-parity): every BSDF type present in ``mat_types`` is evaluated on all
-lanes and the per-lane result selected by ``mtype``. Local shading frame
-(z-up), ``wo`` toward the viewer, ``wi`` sampled/incident, ``f`` without
-the cosine. Sampling draws a fixed budget of 3 uniforms per lane.
+parity). Local shading frame (z-up), ``wo`` toward the viewer, ``wi``
+sampled/incident, ``f`` without the cosine. Sampling draws a fixed budget
+of 3 uniforms per lane.
+
+``evaluate`` and ``sample`` run their plain versions (``evaluate_plain``,
+``sample_plain``: branchless dense-table dispatch, every type present in
+``mat_types`` evaluated on all lanes and the lane's result selected by
+``mtype``) for CPU tensors, and launch one kernel (csrc/bsdf.cu: K12
+``bsdf_eval``, K13 ``bsdf_sample``) for CUDA tensors, where each lane runs
+only its own type, with the same numbers bit for bit. Which type a lane
+takes follows from ``mat_types`` alone (``_lane_rule``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
+from pupiloptixlab_tpu_torch import kernels
 from pupiloptixlab_tpu_torch.accel.gather import gather_cols
 from pupiloptixlab_tpu_torch.flatten.types import (
     MAT_ANISO,
@@ -303,8 +311,9 @@ _EVAL_FNS = {
 }
 
 
-def evaluate(b: LocalBsdf, wo: Vec3, wi: Vec3, mat_types: tuple[int, ...] = ALL_TYPES):
-    """Returns (f Vec3, pdf (N,)). Delta materials return zeros."""
+def evaluate_plain(b: LocalBsdf, wo: Vec3, wi: Vec3, mat_types: tuple[int, ...] = ALL_TYPES):
+    """Plain version of K12 ``bsdf_eval``: (f Vec3, pdf (N,)). Delta
+    materials return zeros."""
     f = _zeros3(wo.z)
     pdf = torch.zeros_like(wo.z)
     present = [t for t in mat_types if t in _EVAL_FNS]
@@ -423,10 +432,11 @@ _SAMPLE_FNS = {
 }
 
 
-def sample(
+def sample_plain(
     b: LocalBsdf, wo: Vec3, u_lobe, u1, u2, mat_types: tuple[int, ...] = ALL_TYPES
 ):
-    """Returns (wi Vec3, f Vec3, pdf (N,), lobe (N,) i32)."""
+    """Plain version of K13 ``bsdf_sample``: (wi Vec3, f Vec3, pdf (N,),
+    lobe (N,) i32)."""
     present = [t for t in mat_types if t in _SAMPLE_FNS]
     if len(present) == 1:
         return _SAMPLE_FNS[present[0]](b, wo, u_lobe, u1, u2)
@@ -442,3 +452,84 @@ def sample(
         pdf = torch.where(sel, pt, pdf)
         lobe = torch.where(sel, lt, lobe)
     return wi, f, pdf, lobe
+
+
+# ---------------------------------------------------------------------------
+# K12 / K13: one kernel a call on the card
+# ---------------------------------------------------------------------------
+
+_rules: dict = {}  # (kind, mat_types) -> (force, mask)
+
+
+def _lane_rule(kind: str, mat_types) -> tuple[int, int]:
+    """(force, mask) of the plain version's selection, ``kind`` "eval" or
+    "sample": with one type present (for "eval": exactly one type in
+    ``mat_types``, and that type having an eval), every lane takes it
+    (force) whatever its ``mtype``; otherwise (force 0) a lane takes its
+    ``mtype`` when bit ``mtype`` of mask is set (the type is present and,
+    for "eval", not a delta type) and zeros when not."""
+    key = (kind, tuple(mat_types))
+    rule = _rules.get(key)
+    if rule is None:
+        present = [t for t in mat_types if t in (_EVAL_FNS if kind == "eval" else _SAMPLE_FNS)]
+        one = len(present) == 1 and (kind == "sample" or len(mat_types) == 1)
+        rule = _rules[key] = (present[0] if one else 0, sum(1 << t for t in set(present)))
+    return rule
+
+
+def _launch_planes(name: str, b: LocalBsdf, lane_planes: tuple) -> tuple[list, list, int, int]:
+    """The launcher's 28 planes (LocalBsdf's, then ``lane_planes``), each
+    checked to be an (N,) tensor on one card of the dtype the kernel reads
+    and made contiguous (a strided plane is copied): their data pointers,
+    the tensors behind them (held until the launch is enqueued), N and the
+    device index."""
+    planes = (b.mtype, b.nonlinear, *b.reflectance, *b.specular, *b.transmittance,
+              *b.eta3, *b.k3, b.alpha, b.alpha_v, b.eta, b.int_fdr, b.ssw, *lane_planes)
+    ref = lane_planes[0]
+    if ref.dim() != 1:
+        raise ValueError(f"{name}: lanes must be (N,) planes, got {tuple(ref.shape)}")
+    n, dev = ref.shape[0], ref.get_device()
+    ptrs, held = [], []
+    for k, p in enumerate(planes):
+        want = torch.int32 if k == 0 else (torch.bool if k == 1 else torch.float32)
+        if p.dtype is not want or p.get_device() != dev or p.shape != ref.shape:
+            raise ValueError(f"{name}: plane {k} must be {want} ({n},) on {ref.device}, "
+                             f"got {p.dtype} {tuple(p.shape)} on {p.device}")
+        if not p.is_contiguous():
+            p = p.contiguous()
+        held.append(p)
+        ptrs.append(p.data_ptr())
+    return ptrs, held, n, dev
+
+
+def evaluate(b: LocalBsdf, wo: Vec3, wi: Vec3, mat_types: tuple[int, ...] = ALL_TYPES):
+    """Returns (f Vec3, pdf (N,)). Delta materials return zeros. The plain
+    version for CPU tensors, one K12 launch for CUDA tensors."""
+    if not wo.z.is_cuda:
+        return evaluate_plain(b, wo, wi, mat_types)
+    force, mask = _lane_rule("eval", mat_types)
+    ptrs, _held, n, dev = _launch_planes("bsdf_eval", b, (*wo, *wi))
+    out = torch.empty((4, n), dtype=torch.float32, device=wo.z.device)
+    fn = kernels.launcher("bsdf_eval")
+    kernels.LAUNCHES["bsdf_eval"] += 1
+    rc = fn(*ptrs, n, force, mask, out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "bsdf_eval")
+    return Vec3(out[0], out[1], out[2]), out[3]
+
+
+def sample(
+    b: LocalBsdf, wo: Vec3, u_lobe, u1, u2, mat_types: tuple[int, ...] = ALL_TYPES
+):
+    """Returns (wi Vec3, f Vec3, pdf (N,), lobe (N,) i32). The plain version
+    for CPU tensors, one K13 launch for CUDA tensors."""
+    if not wo.z.is_cuda:
+        return sample_plain(b, wo, u_lobe, u1, u2, mat_types)
+    force, mask = _lane_rule("sample", mat_types)
+    ptrs, _held, n, dev = _launch_planes("bsdf_sample", b, (*wo, u_lobe, u1, u2))
+    out = torch.empty((7, n), dtype=torch.float32, device=wo.z.device)
+    lobe = torch.empty(n, dtype=torch.int32, device=wo.z.device)
+    fn = kernels.launcher("bsdf_sample")
+    kernels.LAUNCHES["bsdf_sample"] += 1
+    rc = fn(*ptrs, n, force, mask, out.data_ptr(), lobe.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check(rc, "bsdf_sample")
+    return Vec3(out[0], out[1], out[2]), Vec3(out[3], out[4], out[5]), out[6], lobe
