@@ -14,10 +14,19 @@ and sweep kernels), table lookups through the gather and count kernels;
 the rest is elementwise plain PyTorch. The reference's sort hint for its
 Pallas sweeps (``origin_sort_prim``) has no counterpart: the port's
 intersection takes none.
+
+``restir_frame``'s stages are profiler ranges (``restir.gbuffer``,
+``restir.candidates``, ``restir.temporal``, ``restir.spatial``,
+``restir.shade``, ``restir.env``, ``restir.blend``). ``RESTIR_STATS``
+counts a frame's work and times its stages while its ``"enabled"`` is set
+(off by default; then a frame issues no event, synchronisation or
+operation for it).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
 
 import torch
@@ -37,8 +46,66 @@ from pupiloptixlab_tpu_torch.render.sampling import (
     to_local,
 )
 from pupiloptixlab_tpu_torch.render.vec import Vec3, where
+from pupiloptixlab_tpu_torch.utils.profiling import annotate
 
 _TINY = 1e-12
+
+# The last restir_frame's work while ``RESTIR_STATS["enabled"]``: the
+# candidates streamed (pixels x M), the merges tried (pixels x (1 + taps)),
+# the winners' shadow rays and the environment sample's shadow rays issued
+# (lanes their masks let through), and ``stage_ms``, each stage's ms on the
+# stream's clock (a CUDA event pair a stage, read once the frame has ended,
+# which costs the frame a synchronisation; the host's clock on the CPU).
+RESTIR_STATS: dict = {"enabled": False}
+
+STAGES = ("restir.gbuffer", "restir.candidates", "restir.temporal", "restir.spatial",
+          "restir.shade", "restir.env", "restir.blend")
+
+
+class _StageClock:
+    """The stage times and counts of one frame while RESTIR_STATS is on."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: dict = {}    # stage -> (start, end): events, or host seconds
+        self.counts: dict = {}   # name -> int, or a 0-dim device tensor until read
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        if self.cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            yield
+            end.record()
+        else:
+            start = time.perf_counter()
+            yield
+            end = time.perf_counter()
+        self.marks[name] = (start, end)
+
+    def publish(self) -> None:
+        """Read every event and count (after the frame's last operation)
+        into RESTIR_STATS."""
+        if self.cuda:
+            torch.cuda.current_stream().synchronize()
+            ms = {k: s.elapsed_time(e) for k, (s, e) in self.marks.items()}
+        else:
+            ms = {k: (e - s) * 1e3 for k, (s, e) in self.marks.items()}
+        RESTIR_STATS.clear()
+        RESTIR_STATS.update({k: int(v) for k, v in self.counts.items()},
+                            enabled=True, stage_ms=ms)
+
+
+@contextlib.contextmanager
+def _stage(name: str, clock: _StageClock | None):
+    """A profiler range over one stage of the frame, timed while the stats
+    are on."""
+    with annotate(name):
+        if clock is None:
+            yield
+        else:
+            with clock.span(name):
+                yield
 
 
 @dataclass
@@ -159,8 +226,9 @@ def merge(r: Reservoir, other: Reservoir, gb: _GBuf, local, mat_types, u: torch.
 
 
 def shade(scene: SceneData, config: RenderConfig, r: Reservoir, gb: _GBuf, local,
-          hit_mask: torch.Tensor) -> Vec3:
-    """Shade the reservoir's winner with one shadow ray a pixel."""
+          hit_mask: torch.Tensor, clock: _StageClock | None = None) -> Vec3:
+    """Shade the reservoir's winner with one shadow ray a pixel (counted
+    on ``clock`` where one is given)."""
     n = r.w_sum.shape[0]
     dev = r.w_sum.device
     phat, contrib, wi, dist = _eval_target(gb, local, config.mat_types, r.y_pos, r.y_nrm,
@@ -169,6 +237,8 @@ def shade(scene: SceneData, config: RenderConfig, r: Reservoir, gb: _GBuf, local
     tmin = torch.full((n,), RAY_OFFSET, dtype=torch.float32, device=dev)
     occluded = intersect_any(gb.position, wi, tmin, dist - RAY_OFFSET, scene, config,
                              mask=live)
+    if clock is not None:
+        clock.counts["shadow_rays"] = live.sum()
     take = live & ~occluded
     return where(take, contrib * r.ucw, Vec3.zeros(n, device=dev))
 
@@ -279,66 +349,81 @@ def restir_frame(
     em, tex = scene.emitters, scene.textures
     w, h = config.width, config.height
     n = w * h
-    state, rd, hit, geo, local, tmin = primary_gbuffer(scene, camera, seed, config)
-    dev = rd.x.device
-    zero3 = Vec3.zeros(n, device=dev)
-    active = hit.hit_mask
-    radiance = zero3
+    dev = scene.tris.packed.device
+    clock = _StageClock(dev) if RESTIR_STATS["enabled"] else None
+    with _stage("restir.gbuffer", clock):
+        state, rd, hit, geo, local, tmin = primary_gbuffer(scene, camera, seed, config)
+        zero3 = Vec3.zeros(n, device=dev)
+        active = hit.hit_mask
+        radiance = zero3
 
-    # directly visible lights / environment (as the PT first hit)
-    if config.has_env:
-        env_rad0, _ = emitter_mod.eval_env(em, tex, config, rd)
-        radiance = radiance + where(~active, env_rad0, zero3)
-    is_emitter = active & (geo.emitter_id >= 0) & geo.front
-    radiance = radiance + where(is_emitter, _first_hit_emission(scene, config, geo), zero3)
+        # directly visible lights / environment (as the PT first hit)
+        if config.has_env:
+            env_rad0, _ = emitter_mod.eval_env(em, tex, config, rd)
+            radiance = radiance + where(~active, env_rad0, zero3)
+        is_emitter = active & (geo.emitter_id >= 0) & geo.front
+        radiance = radiance + where(is_emitter, _first_hit_emission(scene, config, geo), zero3)
 
     cap = m_cap * float(m_candidates)
     if config.emitter_count > 0:
-        state, r, gb = initial_candidates(scene, config, geo, local, -rd, state,
-                                          m_candidates)
+        with _stage("restir.candidates", clock):
+            state, r, gb = initial_candidates(scene, config, geo, local, -rd, state,
+                                              m_candidates)
 
         # temporal merge (identity warp; similarity-gated, M-capped)
-        state, (u_t,) = rng.next_floats(state, 1)
-        r_prev, p_pos, p_nrm = _unpack(prev_packed)
-        ok_t = similarity(gb, p_pos, p_nrm) & active & (r_prev.m > 0.0)
-        r = merge(r, r_prev, gb, local, config.mat_types, u_t, ok_t, cap)
+        with _stage("restir.temporal", clock):
+            state, (u_t,) = rng.next_floats(state, 1)
+            r_prev, p_pos, p_nrm = _unpack(prev_packed)
+            ok_t = similarity(gb, p_pos, p_nrm) & active & (r_prev.m > 0.0)
+            r = merge(r, r_prev, gb, local, config.mat_types, u_t, ok_t, cap)
 
         # spatial merges: per-pixel random neighbour taps
-        packed0 = _pack(r, gb)
-        px, py = pixel_xy(config, dev)
-        for _ in range(spatial_taps):
-            state, (u1, u2, u3) = rng.next_floats(state, 3)
-            rows = spatial_taps_rows(packed0, px, py, u1, u2, spatial_radius, w, h)
-            r_n, n_pos, n_nrm = _unpack(rows)
-            ok_s = similarity(gb, n_pos, n_nrm) & active & (r_n.m > 0.0)
-            r = merge(r, r_n, gb, local, config.mat_types, u3, ok_s, cap)
+        with _stage("restir.spatial", clock):
+            packed0 = _pack(r, gb)
+            px, py = pixel_xy(config, dev)
+            for _ in range(spatial_taps):
+                state, (u1, u2, u3) = rng.next_floats(state, 3)
+                rows = spatial_taps_rows(packed0, px, py, u1, u2, spatial_radius, w, h)
+                r_n, n_pos, n_nrm = _unpack(rows)
+                ok_s = similarity(gb, n_pos, n_nrm) & active & (r_n.m > 0.0)
+                r = merge(r, r_n, gb, local, config.mat_types, u3, ok_s, cap)
+            del packed0
+            out_packed = _pack(r, gb)
 
-        radiance = radiance + shade(scene, config, r, gb, local, active)
-        out_packed = _pack(r, gb)
+        with _stage("restir.shade", clock):
+            radiance = radiance + shade(scene, config, r, gb, local, active, clock)
+        if clock is not None:
+            clock.counts.update(candidates=n * m_candidates, merges=n * (1 + spatial_taps))
     else:
         out_packed = prev_packed
 
     # environment light: one plain NEE sample on top
     if config.has_env:
-        state, (u1, u2) = rng.next_floats(state, 2)
-        es = emitter_mod._env_sample_direct(em, tex, config, geo.position, geo.normal,
-                                            u1, u2)
-        wi, pdf = es["wi"], es["pdf"]
-        wo_local = to_local(-rd, geo.normal)
-        wi_local = to_local(wi, geo.normal)
-        f, _ = bsdf_mod.evaluate(local, wo_local, wi_local, config.mat_types)
-        nol = geo.normal.dot(wi)
-        need = active & (pdf > 0.0) & (nol > 0.0)
-        occ = intersect_any(
-            geo.position, wi, tmin,
-            torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev),
-            scene, config, mask=need,
-        )
-        # the env sample is drawn at every pixel (not selected), so the
-        # estimator divides by the raw env pdf only
-        scale = nol / torch.clamp(pdf, min=_TINY)
-        radiance = radiance + where(need & ~occ, es["radiance"] * f * scale, zero3)
+        with _stage("restir.env", clock):
+            state, (u1, u2) = rng.next_floats(state, 2)
+            es = emitter_mod._env_sample_direct(em, tex, config, geo.position, geo.normal,
+                                                u1, u2)
+            wi, pdf = es["wi"], es["pdf"]
+            wo_local = to_local(-rd, geo.normal)
+            wi_local = to_local(wi, geo.normal)
+            f, _ = bsdf_mod.evaluate(local, wo_local, wi_local, config.mat_types)
+            nol = geo.normal.dot(wi)
+            need = active & (pdf > 0.0) & (nol > 0.0)
+            occ = intersect_any(
+                geo.position, wi, tmin,
+                torch.full((n,), MAX_DISTANCE, dtype=torch.float32, device=dev),
+                scene, config, mask=need,
+            )
+            # the env sample is drawn at every pixel (not selected), so the
+            # estimator divides by the raw env pdf only
+            scale = nol / torch.clamp(pdf, min=_TINY)
+            radiance = radiance + where(need & ~occ, es["radiance"] * f * scale, zero3)
+            if clock is not None:
+                clock.counts["env_rays"] = need.sum()
 
-    rad = radiance.to_array()
-    blend(accum, rad, sample_cnt, config.accumulate)
+    with _stage("restir.blend", clock):
+        rad = radiance.to_array()
+        blend(accum, rad, sample_cnt, config.accumulate)
+    if clock is not None:
+        clock.publish()
     return accum, out_packed, rad

@@ -34,7 +34,7 @@ GROUPS = ("tris", "spheres", "curves", "materials", "textures", "emitters")
 _cache = {}
 
 
-SCENES = ("mesh_env.xml", "oracle_mat.xml", "dispersion.xml")
+SCENES = ("mesh_env.xml", "oracle_mat.xml", "dispersion.xml", "meshlight_env.xml")
 
 
 def _both(name):

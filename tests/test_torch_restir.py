@@ -17,6 +17,10 @@ and ReSTIRPass (passes/restir.py).
   - packed reservoirs: >= 99.9% of the values within rtol 1e-4 + atol 1e-5
     and every column's rel MSE <= 1e-5 (a reservoir that takes another
     candidate after an ulp-level difference in a weight differs whole).
+* Two DI frames on ``meshlight_env.xml`` at 32x18 (20,480 emissive
+  triangles, the envmap, the BVH route of the viewer's tables: the JAX
+  flatten with its refit records) at the benchmark's M = 32, 5 taps within
+  30 pixels, the reference jitted, with the same gates.
 * ``ReSTIRPass`` through ``System(device="cpu")`` equals the bare frame
   loop (DI, and GI across a camera edit), bit for bit.
 * The BVH route: mesh_env plus one area-lit rectangle (a test scene built
@@ -37,12 +41,17 @@ import torch
 import pupiloptixlab_tpu.render.rng as jax_rng
 import pupiloptixlab_tpu_torch.render.rng as torch_rng
 from pupiloptixlab_tpu.flatten import camera_block_from_scene as jax_camera
+from pupiloptixlab_tpu.flatten import flatten_scene as jax_flatten
 from pupiloptixlab_tpu.render import restir as jre
 from pupiloptixlab_tpu.render.restir_gi import restir_gi_frame as jax_gi_frame
 from pupiloptixlab_tpu.render.vec import Vec3 as JVec3
 from pupiloptixlab_tpu.utils.math import Transform as JTransform
 from pupiloptixlab_tpu_torch.flatten import camera_block_from_scene, flatten_scene
-from pupiloptixlab_tpu_torch.flatten.convert import camera_from_arrays
+from pupiloptixlab_tpu_torch.flatten.convert import (
+    camera_from_arrays,
+    config_from_fields,
+    scene_from_arrays,
+)
 from pupiloptixlab_tpu_torch.passes import ReSTIRPass
 from pupiloptixlab_tpu_torch.render import restir as pre
 from pupiloptixlab_tpu_torch.render.restir_gi import restir_gi_frame
@@ -214,6 +223,33 @@ def test_di_frames_match_reference(oracle_mat, monkeypatch):
     _check_frames(out, n)
     assert out[0][2][0] == 2 + 4 * 4 + 1 + 3 * 2 + 2
     assert float(out[1][1][1][:, 11].max()) > 4.0  # history merged in frame 2
+
+
+def test_di_frames_on_the_mesh_light_scene_match_reference():
+    scene = _load("meshlight_env.xml", 32, 18)
+    jd, jc, _ = jax_flatten(scene, return_refit=True)
+    jcam = jax_camera(scene)
+    groups = ("tris", "spheres", "curves", "materials", "textures", "emitters")
+    tree = {g: {f.name: np.asarray(getattr(getattr(jd, g), f.name))
+                for f in dataclasses.fields(getattr(jd, g))} for g in groups}
+    config = config_from_fields(dataclasses.asdict(jc))
+    data = scene_from_arrays(tree, config, device="cpu")
+    cam = camera_from_arrays({f.name: np.asarray(getattr(jcam, f.name))
+                              for f in dataclasses.fields(jcam)}, device="cpu")
+    assert config.bvh_nodes > 0 and not config.instanced and config.emitter_count == 20480
+    n = config.width * config.height
+    j = (jnp.zeros((n, 3), jnp.float32), jnp.zeros((n, pre.N_PACK), jnp.float32))
+    t = (torch.zeros((n, 3)), torch.zeros((n, pre.N_PACK)))
+    for s in range(2):
+        ja, jp, jr = jre.restir_frame(jd, jcam, jnp.uint32(21 + s), j[1], j[0], jnp.int32(s), jc,
+                                      m_candidates=32, spatial_taps=5, spatial_radius=30)
+        ta, tp, tr = pre.restir_frame(data, cam, 21 + s, t[1], t[0], s, config,
+                                      m_candidates=32, spatial_taps=5, spatial_radius=30)
+        j, t = (ja, jp), (ta.clone(), tp)
+        _image_close(tr.numpy(), np.asarray(jr))
+        _image_close(ta.numpy(), np.asarray(ja))
+        _packed_close(tp.numpy(), np.asarray(jp))
+    assert float(tp[:, 11].max()) > 32 * (1 + 5)  # the second frame merged a history
 
 
 def test_gi_frames_match_reference(oracle_mat, monkeypatch):
